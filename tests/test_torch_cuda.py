@@ -1,11 +1,16 @@
-"""The port's CUDA kernel and its card-only behaviour. These tests need an
-NVIDIA card with nvcc (the kernel has no CPU mode) and skip elsewhere; on
-the card run them with
+"""The port's kernels and its card-only behaviour. These tests need an
+NVIDIA card with nvcc and Triton (the kernels have no CPU mode) and skip
+elsewhere; on the card run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's machine
 need not have.)
+
+Tolerances: a forward in fp32 max-abs 1e-5 (sums in another order); a
+gradient in fp32 1e-4 of max |plain| (a sum over ~1000 keys or queries of
+products that cancel); anything in bf16 2e-2 of max |plain| against the
+plain version on fp32 inputs (bf16 keeps 8 bits).
 """
 
 import numpy as np
@@ -13,7 +18,18 @@ import pytest
 import torch
 
 import vaesne_tpu_torch.ops.attention as attention
-from vaesne_tpu_torch import InferenceServer, PhotometricVAE, PhotoSpecMMVAE, SpectraVAE, init_params
+import vaesne_tpu_torch.ops.laplace as laplace
+from vaesne_tpu_torch import (
+    InferenceServer,
+    PhotometricVAE,
+    PhotoSpecMMVAE,
+    SpectraVAE,
+    TrainState,
+    adamw,
+    init_params,
+    make_train_step,
+    objectives,
+)
 from vaesne_tpu_torch.nn import MultiHeadAttention
 
 pytestmark = pytest.mark.cuda
@@ -22,8 +38,9 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the attention kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -39,12 +56,22 @@ def _inputs(device, R, H, Dh, Lq, Lk, masked, seed=0):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("R,H,Dh,Lq,Lk,masked", [
+def _rel(got, want, floor=1e-6):
+    """max |got − want| over max |want|, or over ``floor`` where that is
+    larger."""
+    return ((got.float() - want).abs().max() / want.abs().max().clamp_min(floor)).item()
+
+
+GRIDS = [
     (3, 4, 8, 1, 1, False), (2, 4, 8, 31, 127, True), (2, 2, 4, 129, 257, True),
     (2, 1, 16, 200, 33, True), (2, 1, 32, 130, 129, False), (4, 4, 8, 982, 982, True),
-])
+    (3, 4, 8, 1100, 70, True),
+]
+
+
+@pytest.mark.parametrize("R,H,Dh,Lq,Lk,masked", GRIDS)
 def test_kernel_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
-    """fp32 max-abs 1e-5 (sums in another order); bf16 2e-2 of max |plain|."""
+    """K1 at rate 0."""
     q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked)
     ref = attention.attention_reference(q, k, v, mask, H)
     before = attention.launches
@@ -55,7 +82,113 @@ def test_kernel_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
     out16 = attention.fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, H)
     torch.cuda.synchronize()
     assert out16.dtype == torch.bfloat16
-    assert ((out16.float() - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+    assert _rel(out16, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("R,H,Dh,Lq,Lk,masked", GRIDS)
+def test_dropout_forward_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
+    """K1 at rate 0.1 against the plain version with the same seed: the
+    masks agree bit for bit, or the outputs would differ by ~p·v."""
+    q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked, seed=1)
+    for seed in (7, 2**32 - 5):
+        ref = attention.attention_reference(q, k, v, mask, H, 0.1, seed)
+        before = attention.dropout_launches
+        out = attention.fused_attention(q, k, v, mask, H, 0.1, seed)
+        torch.cuda.synchronize()
+        assert attention.dropout_launches == before + 1
+        assert (out - ref).abs().max().item() <= 1e-5
+        out16 = attention.fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, H,
+                                          0.1, seed)
+        assert _rel(out16, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("R,H,Dh,Lq,Lk,masked", GRIDS)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_backward_matches_autograd_of_plain_version(cuda, R, H, Dh, Lq, Lk, masked, rate):
+    """K2 (dq, dk, dv) and K1's statistics against the plain versions."""
+    q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked, seed=2)
+    dout = torch.randn_like(q)
+    seed = 11 if rate > 0 else None
+    want = attention.attention_backward_reference(q, k, v, mask, dout, H, rate, seed)
+    m_ref, l_ref = attention.attention_stats_reference(q, k, mask, H)
+    # With one key the softmax passes no gradient: autograd gives dq = dk =
+    # 0 exactly, as (g − g)·1, while the kernel takes dp − Σ do·o from two
+    # sums of O(1) terms in another order (with o rounded to bf16 in bf16),
+    # so there the tolerance is held in absolute terms.
+    floor = 1.0 if Lk == 1 else 1e-6
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        qd, kd, vd = (t.detach().to(dtype).requires_grad_() for t in (q, k, v))
+        before = attention.bwd_launches
+        out = attention.fused_attention(qd, kd, vd, mask, H, rate, seed)
+        out.backward(dout.to(dtype))
+        torch.cuda.synchronize()
+        assert attention.bwd_launches == before + 2
+        for got, ref in zip((qd.grad, kd.grad, vd.grad), want):
+            assert got.dtype == dtype
+            assert _rel(got, ref, floor) <= tol, (dtype, _rel(got, ref, floor))
+    _, m, l = attention.fused_attention_fwd(q, k, v, mask, H, rate, seed)
+    torch.testing.assert_close(m, m_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_ref, rtol=1e-5, atol=1e-5)
+    if masked:  # a fully masked row: every weight 1/Lk, so l = Lk
+        torch.testing.assert_close(l[0], torch.full_like(l[0], float(Lk)), rtol=1e-5, atol=0)
+
+
+def test_dropout_keep_rate(cuda):
+    """With q = 0 every weight is 1/Lk and with v = 1 each output is
+    #kept/Lk/(1 − rate): the kernel's keep rate is 230/256 within 4σ over
+    31M draws."""
+    R, H, L = 8, 4, 982
+    q = torch.zeros(R, L, H * 8, device=cuda)
+    v = torch.ones_like(q)
+    out = attention.fused_attention(q, q, v, None, H, 0.1, 12345)
+    keep = out.double().mean().item() * 0.9
+    n = R * H * L * L
+    p = 230 / 256
+    assert abs(keep - p) <= 4 * (p * (1 - p) / n) ** 0.5, keep
+
+
+@pytest.mark.parametrize("R,N,x_rows", [(384, 982, 192), (384, 982, 384), (1, 982, 1),
+                                        (6, 130, 3), (4, 2000, 1)])
+def test_laplace_kernels_match_plain_versions(cuda, R, N, x_rows):
+    """K3 (row sums, fp32 rtol 1e-5: sums of ~N terms in another order) and
+    K4 (elementwise, the same operations: 1e-6)."""
+    g = torch.Generator(cuda).manual_seed(3)
+    loc = torch.randn(R, N, device=cuda, generator=g, requires_grad=True)
+    x = torch.randn(x_rows, N, device=cuda, generator=g)
+    x[0, :5] = loc[0, :5].detach()  # sign(0) = 0
+    mask = torch.rand(R, N, device=cuda, generator=g) < 0.2
+    ref = laplace.masked_laplace_loglik_reference(loc, x, mask, 1e10)
+    before = (laplace.launches, laplace.bwd_launches)
+    out = laplace.masked_laplace_loglik(loc, x, mask, 1e10)
+    gout = torch.randn(R, device=cuda, generator=g)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert (laplace.launches, laplace.bwd_launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+    want = laplace.masked_laplace_grad_reference(loc.detach(), x, mask, 1e10, gout)
+    torch.testing.assert_close(loc.grad, want, rtol=1e-6, atol=0)
+    assert (loc.grad[0, :5] == 0).all()
+
+
+def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    for name in ("attention_reference", "attention_stats_reference",
+                 "attention_backward_reference"):
+        monkeypatch.setattr(attention, name, refuse)
+    for name in ("masked_laplace_loglik_reference", "masked_laplace_grad_reference"):
+        monkeypatch.setattr(laplace, name, refuse)
+    q, k, v, mask = _inputs(cuda, 2, 4, 8, 40, 50, True)
+    for t in (q, k, v):
+        t.requires_grad_()
+    attention.fused_attention(q, k, v, mask, 4, 0.1, 3).sum().backward()
+    loc = torch.randn(4, 200, device=cuda, requires_grad=True)
+    laplace.masked_laplace_loglik(loc, torch.randn(2, 200, device=cuda),
+                                  torch.zeros(4, 200, dtype=torch.bool, device=cuda),
+                                  1e10).sum().backward()
+    torch.cuda.synchronize()
+    assert q.grad is not None and loc.grad is not None
 
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
@@ -64,17 +197,37 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
         attention.fused_attention(q.half(), k.half(), v.half(), mask, 2)
     with pytest.raises(ValueError, match="one device"):
         attention.fused_attention(q, k, v, mask.cpu(), 2)
+    with pytest.raises(ValueError, match="seed"):
+        attention.fused_attention(q, k, v, mask, 2, 0.1)
+    with pytest.raises(TypeError, match="bool"):
+        laplace.masked_laplace_loglik(q[:, 0], q[:, 0], q[:, 0], 1e10)
 
 
-def test_routed_dropout_raises_on_the_card(cuda):
+def test_routed_dropout_launches_the_kernel(cuda):
     mha = MultiHeadAttention(32, 4, dropout=0.1).to(cuda).train()
     x = torch.randn(1, 256, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="seed"):
         mha(x, x, x)
+    before = attention.dropout_launches
+    a = mha(x, x, x, seed=5)
+    assert attention.dropout_launches == before + 1
+    torch.testing.assert_close(a, mha(x, x, x, seed=5))
+    assert not torch.allclose(a, mha(x, x, x, seed=6))
     mha.eval()
     before = attention.launches
     assert torch.isfinite(mha(x, x, x)).all()
     assert attention.launches == before + 1
+
+
+def _batch(B, lp, ns, seed=0):
+    rng = np.random.default_rng(seed)
+    photo = (rng.normal(size=(B, lp)).astype(np.float32),
+             np.sort(rng.uniform(-1, 1, (B, lp)), axis=1).astype(np.float32),
+             rng.integers(0, 6, (B, lp)), rng.uniform(size=(B, lp)) < 0.2)
+    spec = (rng.normal(size=(B, ns)).astype(np.float32),
+            np.linspace(-1, 1, ns, dtype=np.float32)[None].repeat(B, 0),
+            rng.normal(size=(B,)).astype(np.float32), rng.uniform(size=(B, ns)) < 0.2)
+    return photo, spec
 
 
 def test_server_runs_on_the_card_by_default(cuda):
@@ -83,14 +236,35 @@ def test_server_runs_on_the_card_by_default(cuda):
                         torch.Generator().manual_seed(0))
     server = InferenceServer(model, buckets=(4,))
     assert server.device.type == "cuda"
-    rng = np.random.default_rng(0)
-    photo = (rng.normal(size=(3, 12)).astype(np.float32),
-             np.sort(rng.uniform(-1, 1, (3, 12)), axis=1).astype(np.float32),
-             rng.integers(0, 6, (3, 12)), rng.uniform(size=(3, 12)) < 0.2)
-    spec = (rng.normal(size=(3, 300)).astype(np.float32),
-            np.linspace(-1, 1, 300, dtype=np.float32)[None].repeat(3, 0),
-            rng.normal(size=(3,)).astype(np.float32), rng.uniform(size=(3, 300)) < 0.2)
+    photo, spec = _batch(3, 12, 300)
     before = attention.launches
     out = server.crossmodal(photo, spec, K=2)
     assert out.is_cuda and out.shape == (2, 3, 300) and torch.isfinite(out).all()
     assert attention.launches == before + 1  # one layer's 300x300 self-attention
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_flagship_train_step_on_the_card(cuda, precision):
+    """Two m-IWAE steps of the flagship model (B = 8, K = 2, dropout 0.1,
+    remat on) on the card: finite losses and per step 8 K1 launches (4
+    layers, forward and re-run), 8 K2 (2 kernels x 4), 2 K3 and 2 K4."""
+    model = init_params(PhotoSpecMMVAE([
+        PhotometricVAE(num_bands=6, latent_len=4, latent_dim=4, model_dim=32, ff_dim=32),
+        SpectraVAE(latent_len=4, latent_dim=4, model_dim=32, ff_dim=32)]),
+        torch.Generator().manual_seed(0))
+    opt = adamw(1e-4)
+    state = TrainState.create(model, opt, seed=0)
+    step = make_train_step(model, opt, lambda m, b, s: objectives.m_iwae(m, b, K=2, seed=s),
+                           precision=precision)
+    batch = _batch(8, 60, 982)
+    losses = []
+    for _ in range(2):
+        counts = (attention.dropout_launches, attention.bwd_launches, laplace.launches,
+                  laplace.bwd_launches)
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+        now = (attention.dropout_launches, attention.bwd_launches, laplace.launches,
+               laplace.bwd_launches)
+        assert tuple(b - a for a, b in zip(counts, now)) == (8, 8, 2, 2)
+    assert np.isfinite(losses).all() and losses[0] != losses[1]
+    assert next(model.parameters()).is_cuda and state.step == 2

@@ -127,13 +127,62 @@ def test_transformer_stack_matches():
 
 
 def test_dropout_only_in_train_mode():
+    """Eval mode needs no seed and drops nothing; train mode draws every
+    mask from the seed it is given (the same seed, the same output) and
+    refuses to run without one."""
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.normal(size=(2, 6, 16)).astype(np.float32))
     ctx = torch.from_numpy(rng.normal(size=(2, 3, 16)).astype(np.float32))
     m = tnn.TransformerBlock(16, 2, 16, dropout=0.5).eval()
     torch.testing.assert_close(m(x, ctx), m(x, ctx))
+    torch.testing.assert_close(m(x, ctx, seed=1), m(x, ctx))
     m.train()
-    torch.manual_seed(1)
-    a = m(x, ctx)
-    torch.manual_seed(2)
-    assert not torch.allclose(a, m(x, ctx))
+    a = m(x, ctx, seed=1)
+    torch.testing.assert_close(a, m(x, ctx, seed=1))
+    assert not torch.allclose(a, m(x, ctx, seed=2))
+    with pytest.raises(ValueError, match="needs a seed"):
+        m(x, ctx)
+
+
+@pytest.mark.parametrize("lq,lk", [(6, 9), (256, 256)])
+def test_attention_dropout_is_the_kernel_mask(lq, lk):
+    """Train-mode attention dropout on a grid routed to the kernels drops
+    exactly the weights the kernels' hash drops: the layer equals its
+    projections around ``attention_reference`` with the same seed. A grid
+    on the plain path drops the softmax weights with the seeded
+    ``dropout`` helper instead; both are functions of the seed alone."""
+    from vaesne_tpu_torch.ops import (attend, attention_reference, attention_weights,
+                                      routes_to_kernel)
+    from vaesne_tpu_torch.nn.layers import dropout
+
+    q, kv, mask = _attn_case(8, B=1, Lq=lq, Lk=lk)
+    mha = tnn.MultiHeadAttention(32, 4, dropout=0.3).train()
+    t = [_t(a) for a in (q, kv, mask)]
+    qp, kp, vp = mha.q_proj(t[0]), mha.k_proj(t[1]), mha.v_proj(t[1])
+    if routes_to_kernel(1, 4, lq, lk):
+        inner = attention_reference(qp, kp, vp, t[2], 4, 0.3, 9)
+    else:
+        inner = attend(dropout(attention_weights(qp, kp, t[2], 4), 0.3, 9), vp, 4)
+        assert not torch.allclose(inner, attention_reference(qp, kp, vp, t[2], 4, 0.3, 9))
+    got = mha(t[0], t[1], t[1], t[2], seed=9)
+    torch.testing.assert_close(got, mha.out_proj(inner))
+    torch.testing.assert_close(got, mha(t[0], t[1], t[1], t[2], seed=9))
+
+
+def test_remat_keeps_outputs_and_gradients():
+    """A stack rematerialised in the backward gives the outputs and
+    gradients of one that is not, in train mode at dropout 0.1."""
+    rng = np.random.default_rng(9)
+    x = _t(rng.normal(size=(2, 7, 16)).astype(np.float32))
+    ctx = _t(rng.normal(size=(2, 3, 16)).astype(np.float32))
+    stack = tnn.TransformerStack(16, 2, 16, 2, dropout=0.1).train()
+    results = []
+    for remat in (True, False):
+        stack.remat = remat
+        stack.zero_grad(set_to_none=True)
+        out = stack(x, ctx, seed=4)
+        out.square().sum().backward()
+        results.append((out.detach(), [p.grad.clone() for p in stack.parameters()]))
+    torch.testing.assert_close(results[0][0], results[1][0])
+    for a, b in zip(results[0][1], results[1][1]):
+        torch.testing.assert_close(a, b)

@@ -1,6 +1,6 @@
-"""The weight bridge from the JAX package's parameter tree, and the port's
-import hygiene: it imports torch, numpy and the standard library, never
-JAX, flax or the JAX package."""
+"""The weight bridge from the JAX package's parameter tree and back, and
+the port's import hygiene: it imports torch, numpy and the standard
+library, never JAX, flax or the JAX package."""
 
 import ast
 import os
@@ -15,7 +15,7 @@ import torch
 
 import vaesne_tpu.models as jmodels
 import vaesne_tpu_torch.models as tmodels
-from vaesne_tpu_torch.utils import init_params, load_jax_params
+from vaesne_tpu_torch.utils import init_params, load_jax_params, to_jax_params
 from vaesne_tpu_torch.utils.weights import torch_key
 
 REPO = Path(__file__).resolve().parent.parent
@@ -62,6 +62,23 @@ def test_flagship_tree_maps_one_to_one():
     # every flax leaf filled a distinct port parameter, and every port
     # parameter came from a flax leaf
     assert len(keys) == len(flat) == len(state) and keys == set(state)
+
+
+def test_to_jax_params_inverts_the_bridge():
+    """flax tree → port → flax tree is the identity, leaf for leaf, and a
+    mapping of other values (gradients, say) lands on the same paths."""
+    tree = _flagship_tree()
+    model = _torch_flagship()
+    load_jax_params(model, tree)
+    back = to_jax_params(model)
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(flat)
+    for path, value in flat:
+        np.testing.assert_array_equal(got[path], value)
+    twice = to_jax_params(model, {n: 2 * p for n, p in model.named_parameters()})
+    for path, value in jax.tree_util.tree_flatten_with_path(twice)[0]:
+        np.testing.assert_allclose(value, 2 * got[path], rtol=1e-6)
 
 
 def test_bridge_raises_on_mismatch():

@@ -1,20 +1,25 @@
 """PyTorch/CUDA port of VAESNe for one NVIDIA H100.
 
-A second package beside the JAX reference ``vaesne_tpu``: the serving path of
-the photometry + spectra MoE-MMVAE in PyTorch, with the JAX package's TPU
-kernel on that path (fused masked attention, forward) written by hand in
-CUDA for Hopper. Imports torch, numpy and the standard library only.
+A second package beside the JAX reference ``vaesne_tpu``: the serving and
+training paths of the photometry + spectra MoE-MMVAE in PyTorch, with the
+JAX package's TPU kernels on those paths written by hand for Hopper (fused
+masked attention forward and backward in CUDA C++, the masked Laplace
+log-likelihood forward and backward in Triton). Imports torch, numpy and
+the standard library only (and Triton, at the first launch on a card).
 """
 
+from . import objectives, training
 from .distributions import Laplace, MaskedGridLaplace, Normal, get_mean, kl_divergence, log_mean_exp
 from .models import MMVAE, PhotometricVAE, PhotoSpecMMVAE, SpectraVAE
-from .ops import attention_reference, fused_attention, routes_to_kernel
+from .ops import attention_reference, fused_attention, masked_laplace_loglik, routes_to_kernel
 from .serving import InferenceServer
-from .utils import init_params, load_jax_params
+from .training import TrainState, adamw, make_train_step
+from .utils import fold_in, init_params, load_jax_params, to_jax_params
 
 __all__ = [
     "InferenceServer", "Laplace", "MMVAE", "MaskedGridLaplace", "Normal",
-    "PhotoSpecMMVAE", "PhotometricVAE", "SpectraVAE", "attention_reference",
-    "fused_attention", "get_mean", "init_params", "kl_divergence",
-    "load_jax_params", "log_mean_exp", "routes_to_kernel",
+    "PhotoSpecMMVAE", "PhotometricVAE", "SpectraVAE", "TrainState", "adamw",
+    "attention_reference", "fold_in", "fused_attention", "get_mean", "init_params",
+    "kl_divergence", "load_jax_params", "log_mean_exp", "make_train_step",
+    "masked_laplace_loglik", "objectives", "routes_to_kernel", "to_jax_params", "training",
 ]

@@ -5,9 +5,8 @@ JAX package's (``mean``, ``scale``, ``log_prob``, ``sample``, ``observed``),
 with a ``torch.Generator`` where JAX threads a PRNG key, and ``map`` to apply
 one tensor function to every array a distribution holds (the JAX package's
 ``tree_map`` over the pytree). Defaults everywhere are Laplace.
-
-``MaskedGridLaplace.grid_loglik`` is not here yet: it launches the masked
-Laplace kernel, which belongs to the training path.
+``MaskedGridLaplace.grid_loglik`` routes grids of 128 points or more to the
+masked Laplace kernels (``ops/laplace.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,9 @@ import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
+
+from .ops.dispatch import laplace_routes_to_kernel
+from .ops.laplace import masked_laplace_loglik, masked_laplace_loglik_reference
 
 Shape = Tuple[int, ...]
 
@@ -137,6 +139,31 @@ class MaskedGridLaplace:
         """Laplace(loc, 1): the likelihood on observed points, without the
         1 + big·mask inflation (which only nulls masked points' gradient)."""
         return Laplace(self.loc, torch.ones_like(self.loc))
+
+    def grid_loglik(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ over all grid axes of ``log_prob(x)``, keeping the two leading
+        (K, B) axes: [K, B], fp32. ``x`` is the unexpanded data [B, ...] or
+        broadcasts against ``loc``.
+
+        Rows are flattened BATCH-major (row b·K + k), as the decoder made
+        them, so the flatten of ``loc`` and the mask undoes ``decode``'s exit
+        transpose; unexpanded data stays [B, N] and the kernel reads row
+        r // K of it. ``loc`` is cast to fp32 first (under bf16 autocast
+        the decoder hands over bf16)."""
+        K, B = self.loc.shape[:2]
+
+        def flat(a):
+            return a.transpose(0, 1).reshape(B * K, -1)
+
+        loc = flat(self.loc).float()
+        mask = flat(self.mask.expand(self.loc.shape))
+        if tuple(x.shape) == tuple(self.loc.shape[1:]):
+            data = x.reshape(B, -1)
+        else:
+            data = flat(x.expand(self.loc.shape))
+        fn = (masked_laplace_loglik if laplace_routes_to_kernel(loc.shape[-1])
+              else masked_laplace_loglik_reference)
+        return fn(loc, data, mask, float(self.big)).reshape(B, K).transpose(0, 1)
 
 
 Distribution = Union[Laplace, Normal, MaskedGridLaplace]

@@ -3,16 +3,18 @@
 The counterpart of ``vaesne_tpu/models/base_vae.py``, with one API for every
 modality VAE:
 
-  forward(x, K, generator)   -> (qz_x, px_z, zs)
+  forward(x, K, generator, seed) -> (qz_x, px_z, zs)
   encode(x, mean)            -> posterior mean, or the distribution
-  decode(zs, x)              -> px_z over the modality grid, batch [K, B]
+  decode(zs, x, seed)        -> px_z over the modality grid, batch [K, B]
   reconstruct(x, K, ...)     -> reconstructions [K, B, ...]
   generate(N, x, generator)  -> prior draws decoded on x's grids [N, B, ...]
 
 The K importance samples are flattened into the decoder batch BATCH-major
 (row b·K + k), exactly as the JAX package does, and unflattened back to
-[K, B, ...] at the exit. Dropout follows train/eval mode; ``encode`` and
-``reconstruct`` always run deterministic, as in the JAX package.
+[K, B, ...] at the exit. Dropout follows train/eval mode and, in train
+mode, draws from the integer ``seed`` (the encoder from ``fold_in(seed, 0)``,
+the decoder from ``fold_in(seed, 1)``); ``encode`` and ``reconstruct``
+always run deterministic, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from torch import nn
 
 from ..distributions import Distribution, Laplace, MaskedGridLaplace
+from ..utils.rng import maybe_fold_in
 
 
 def tile_leading(a: torch.Tensor, K: int) -> torch.Tensor:
@@ -45,7 +48,7 @@ def eval_mode(module: nn.Module):
 class BaseVAE(nn.Module):
     """Shared behaviour of the modality VAEs. Subclasses set ``latent_len``,
     ``latent_dim``, ``beta``, ``llik_scaling`` and implement
-    ``_enc_params(x) -> (mu, scale)`` and ``_dec_dist(z_flat, x, K)``."""
+    ``_enc_params(x, seed) -> (mu, scale)`` and ``_dec_dist(z_flat, x, K, seed)``."""
 
     prior = Laplace
     likelihood = Laplace
@@ -60,11 +63,12 @@ class BaseVAE(nn.Module):
         shape = (self.latent_len, self.latent_dim)
         return self.prior(torch.zeros(shape, device=device), torch.ones(shape, device=device))
 
-    def forward(self, x, K: int = 1, generator: Optional[torch.Generator] = None):
-        mu, scale = self._enc_params(x)
+    def forward(self, x, K: int = 1, generator: Optional[torch.Generator] = None,
+                seed: Optional[int] = None):
+        mu, scale = self._enc_params(x, maybe_fold_in(seed, 0))
         qz_x = self.posterior(mu, scale)
         zs = qz_x.sample(generator, (K,))
-        return qz_x, self.decode(zs, x), zs
+        return qz_x, self.decode(zs, x, maybe_fold_in(seed, 1)), zs
 
     def encode(self, x, mean: bool = True):
         """Posterior mean (or the whole posterior), always deterministic."""
@@ -73,11 +77,11 @@ class BaseVAE(nn.Module):
         qz_x = self.posterior(mu, scale)
         return qz_x.mean if mean else qz_x
 
-    def decode(self, zs: torch.Tensor, x) -> Distribution:
+    def decode(self, zs: torch.Tensor, x, seed: Optional[int] = None) -> Distribution:
         """zs [K, B, latent_len, latent_dim] → likelihood with batch [K, B, ...]."""
         K, B = zs.shape[0], zs.shape[1]
         z_flat = zs.transpose(0, 1).reshape((B * K,) + tuple(zs.shape[2:]))
-        px_flat = self._dec_dist(z_flat, x, K)
+        px_flat = self._dec_dist(z_flat, x, K, seed)
         return px_flat.map(lambda a: a.reshape((B, K) + tuple(a.shape[1:])).transpose(0, 1))
 
     def _masked_likelihood(self, loc: torch.Tensor, mask: torch.Tensor,

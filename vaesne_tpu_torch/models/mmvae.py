@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..distributions import Distribution, Laplace
+from ..utils.rng import maybe_fold_in
 from .base_vae import BaseVAE, eval_mode
 
 GOLDSTEIN_LENGTH_RATIO = 982.0 / 60.0
@@ -36,10 +37,13 @@ class MMVAE(nn.Module):
         shape = (self.vaes[0].latent_len, self.vaes[0].latent_dim)
         return self.prior(torch.zeros(shape, device=device), torch.ones(shape, device=device))
 
-    def forward(self, x, K: int = 1, generator: Optional[torch.Generator] = None):
-        """Encode every modality, then fill the M×M matrix with ONE decoder
-        pass per modality: the M experts' latents are stacked on the K axis
-        ([M·K, B, L, D]) and the result sliced back per expert."""
+    def forward(self, x, K: int = 1, generator: Optional[torch.Generator] = None,
+                seed: Optional[int] = None):
+        """Encode every modality (deterministic, as in the JAX package), then
+        fill the M×M matrix with ONE decoder pass per modality: the M
+        experts' latents are stacked on the K axis ([M·K, B, L, D]) and the
+        result sliced back per expert. In train mode decoder d's dropout
+        draws from ``fold_in(seed, d)``."""
         qz_xs, zss = [], []
         for m, vae in enumerate(self.vaes):
             qz_x = vae.encode(x[m], mean=False)
@@ -49,7 +53,7 @@ class MMVAE(nn.Module):
         z_all = torch.cat(zss, dim=0)  # [M*K, B, L, D]
         px_zs = [[None] * M for _ in range(M)]
         for d, vae in enumerate(self.vaes):
-            px_all = vae.decode(z_all, x[d])
+            px_all = vae.decode(z_all, x[d], maybe_fold_in(seed, d))
             for e in range(M):
                 px_zs[e][d] = px_all.map(lambda a, e=e: a[e * K:(e + 1) * K])
         return qz_xs, px_zs, zss

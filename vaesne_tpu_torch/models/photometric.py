@@ -8,7 +8,7 @@ scale 1 + 1e8·mask. Counterpart of ``vaesne_tpu/models/photometric.py``
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,16 +45,16 @@ class PhotometricVAE(BaseVAE):
             num_heads=num_heads, ff_dim=ff_dim, num_layers=num_layers,
             dropout=dropout)
 
-    def _enc_params(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _enc_params(self, x, seed: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         flux, time, band, mask = x
-        bottleneck = self.enc(flux, time, band, mask)
+        bottleneck = self.enc(flux, time, band, mask, seed=seed)
         mu = bottleneck[:, : self.latent_len, :]
         # scale_eps floors the posterior scale, which softplus can underflow
         scale = F.softplus(bottleneck[:, self.latent_len:, :]) + self.scale_eps
         return mu, scale
 
-    def _dec_dist(self, z_flat, x, K: int):
+    def _dec_dist(self, z_flat, x, K: int, seed: Optional[int] = None):
         _, time, band, mask = x
         time_t, band_t, mask_t = (tile_leading(a, K) for a in (time, band, mask))
-        loc = self.dec(time_t, band_t, z_flat, mask_t)
+        loc = self.dec(time_t, band_t, z_flat, mask_t, seed=seed)
         return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)

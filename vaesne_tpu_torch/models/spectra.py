@@ -9,7 +9,7 @@ later).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,18 +41,18 @@ class SpectraVAE(BaseVAE):
             bottleneck_dim=latent_dim, model_dim=model_dim, num_heads=num_heads,
             ff_dim=ff_dim, num_layers=num_layers, dropout=dropout)
 
-    def _enc_params(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _enc_params(self, x, seed: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         flux, wavelength, phase, mask = x
         # Deliberate swap, as in the JAX package and the original reference:
         # wavelength goes through the linear "flux" path and flux through
         # the sinusoidal "wavelength" path.
-        bottleneck = self.enc(wavelength, flux, phase, mask)
+        bottleneck = self.enc(wavelength, flux, phase, mask, seed=seed)
         mu = bottleneck[:, : self.latent_len, :]
         scale = F.softplus(bottleneck[:, self.latent_len:, :]) + self.scale_eps
         return mu, scale
 
-    def _dec_dist(self, z_flat, x, K: int):
+    def _dec_dist(self, z_flat, x, K: int, seed: Optional[int] = None):
         _, wavelength, phase, mask = x
         wl_t, phase_t, mask_t = (tile_leading(a, K) for a in (wavelength, phase, mask))
-        loc = self.dec(wl_t, phase_t, z_flat, mask_t)
+        loc = self.dec(wl_t, phase_t, z_flat, mask_t, seed=seed)
         return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)

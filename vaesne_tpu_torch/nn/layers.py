@@ -12,10 +12,14 @@ onto the other mechanically:
     a fully masked row averages uniformly instead of giving NaN. Large grids
     (``ops.dispatch.routes_to_kernel``) go to the fused CUDA kernel.
   * ``TransformerBlock`` (post-LN, LayerNorm eps 1e-5, exact erf GELU) and
-    ``TransformerStack``.
+    ``TransformerStack`` (each block rematerialised in the backward, as in
+    the JAX package).
 
 Dropout follows the module's train/eval mode: ``model.eval()`` is the JAX
-package's ``deterministic=True``.
+package's ``deterministic=True``. In train mode every dropout site draws
+from an integer ``seed`` passed to ``forward`` (``utils.rng.fold_in`` of the
+caller's seed and the site's index), never from torch's global generator, so
+a block re-run by ``torch.utils.checkpoint`` draws the same masks again.
 """
 
 from __future__ import annotations
@@ -26,8 +30,10 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ..ops import attention_reference, fused_attention, routes_to_kernel
+from ..ops import attend, attention_weights, fused_attention, routes_to_kernel
+from ..utils.rng import device_generator, maybe_fold_in
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
 
@@ -96,15 +102,34 @@ class SinusoidalMLPEmbedding(nn.Module):
         return self.fc2(F.relu(self.fc1(enc)))
 
 
+def _need_seed(seed: Optional[int], what: str) -> int:
+    if seed is None:
+        raise ValueError(f"{what} in train mode with dropout > 0 needs a seed")
+    return seed
+
+
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+    """Inverted dropout of ``x`` with a mask drawn from a generator seeded
+    with ``seed`` on x's device (rate 0: ``x`` itself)."""
+    if rate == 0.0:
+        return x
+    g = device_generator(_need_seed(seed, "dropout"), x.device)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
+
+
 class MultiHeadAttention(nn.Module):
     """Multi-head attention over [B, L, E]: q/k/v/out projections E→E with
     bias, scaling 1/√head_dim, ``key_padding_mask`` bool [B, Lk] with
-    True = ignore, dropout on the attention weights in train mode.
+    True = ignore, dropout on the attention weights in train mode, drawn
+    from ``seed``.
 
     Grids that ``routes_to_kernel`` picks go to ``ops.fused_attention`` (the
-    CUDA kernel on a card, its plain version on the CPU); the rest take the
-    plain einsum path. The kernel has no dropout yet: a routed grid with
-    dropout active on a CUDA tensor raises."""
+    CUDA kernels on a card, their plain versions on the CPU), whose dropout
+    mask is the kernels' hash (``ops.attention.dropout_keep``). The rest take
+    the plain einsum path and drop the softmax weights with ``dropout``, as
+    the JAX layer's plain path draws a bernoulli mask: a few elementwise
+    passes where the hash would take ~20 int64 passes over the weights."""
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -118,24 +143,23 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                key_padding_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         q = self.q_proj(query)
         k = self.k_proj(key)
         v = self.v_proj(value)
         rate = self.dropout if self.training else 0.0
+        if rate > 0.0:
+            _need_seed(seed, "attention dropout")
         lq, lk = q.shape[-2], k.shape[-2]
-        routed = q.dim() == 3 and routes_to_kernel(q.shape[0], self.num_heads, lq, lk)
-        if routed and rate == 0.0:
+        if q.dim() == 3 and routes_to_kernel(q.shape[0], self.num_heads, lq, lk):
             if key_padding_mask is not None:
                 key_padding_mask = key_padding_mask.contiguous()
             out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  key_padding_mask, self.num_heads)
-        elif routed and q.is_cuda:
-            raise NotImplementedError(
-                "attention dropout inside the fused kernel arrives with the "
-                "training slice of the port; call model.eval() to serve")
+                                  key_padding_mask, self.num_heads, rate, seed)
         else:
-            out = attention_reference(q, k, v, key_padding_mask, self.num_heads, rate)
+            weights = attention_weights(q, k, key_padding_mask, self.num_heads)
+            out = attend(dropout(weights, rate, seed), v, self.num_heads)
         return self.out_proj(out)
 
 
@@ -148,7 +172,9 @@ class TransformerBlock(nn.Module):
       x   = LN3(x + drop(FFN(x)))                   # Dense → GELU → Dense
 
     Every tower of the model calls its blocks with a context, so the
-    cross-attention parameters always exist."""
+    cross-attention parameters always exist. In train mode the seven
+    dropout sites (three attentions, four residual branches) draw from
+    ``fold_in(seed, site)``."""
 
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int,
                  dropout: float = 0.1, context_self_attn: bool = False):
@@ -164,38 +190,78 @@ class TransformerBlock(nn.Module):
         self.ffn_0 = nn.Linear(embed_dim, ff_dim)
         self.ffn_2 = nn.Linear(ff_dim, embed_dim)
         self.layernorm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.drop = nn.Dropout(dropout)
+        self.dropout = dropout
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        attn = self.self_attn(x, x, x, key_padding_mask=mask)
-        x = self.layernorm1(x + self.drop(attn))
+                context_mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        rate = self.dropout if self.training else 0.0
+
+        def site(i):
+            return maybe_fold_in(seed, i)
+
+        attn = self.self_attn(x, x, x, key_padding_mask=mask, seed=site(0))
+        x = self.layernorm1(x + dropout(attn, rate, site(1)))
         if context is not None:
             if self.context_self_attn is not None:
                 ctx = self.context_self_attn(context, context, context,
-                                             key_padding_mask=context_mask)
-                context = self.layernorm_context(context + self.drop(ctx))
-            cross = self.cross_attn(x, context, context, key_padding_mask=context_mask)
-            x = self.layernorm2(x + self.drop(cross))
+                                             key_padding_mask=context_mask, seed=site(2))
+                context = self.layernorm_context(context + dropout(ctx, rate, site(3)))
+            cross = self.cross_attn(x, context, context, key_padding_mask=context_mask,
+                                    seed=site(4))
+            x = self.layernorm2(x + dropout(cross, rate, site(5)))
         h = self.ffn_2(F.gelu(self.ffn_0(x), approximate="none"))
-        return self.layernorm3(x + self.drop(h))
+        return self.layernorm3(x + dropout(h, rate, site(6)))
+
+
+def _run_in_mode(block: nn.Module, training: bool, *args):
+    """Run ``block`` in the train/eval mode it had at the forward. The
+    checkpoint's re-run comes in the backward, when the caller may have
+    switched modes (``encode`` runs an encoder in eval mode inside a
+    training step)."""
+    if block.training == training:
+        return block(*args)
+    was = block.training
+    block.train(training)
+    try:
+        return block(*args)
+    finally:
+        block.train(was)
 
 
 class TransformerStack(nn.Module):
-    """``num_layers`` TransformerBlocks ``block_i`` applied in turn."""
+    """``num_layers`` TransformerBlocks ``block_i`` applied in turn; block i
+    takes ``fold_in(seed, i)``.
+
+    ``remat`` (default on, as in the JAX package) rematerialises each block
+    in the backward whenever gradients are recorded:
+    ``torch.utils.checkpoint`` keeps only the block's inputs and re-runs it
+    before its backward, trading compute for the activations over the
+    982-token grids. The block's seed is an argument of the checkpointed
+    call, so the re-run draws the same dropout masks."""
 
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int, num_layers: int,
-                 dropout: float = 0.1, context_self_attn: bool = False):
+                 dropout: float = 0.1, context_self_attn: bool = False, remat: bool = True):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, ff_dim, dropout, context_self_attn))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                context_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context_mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"block_{i}")(x, context, mask, context_mask)
+            block = getattr(self, f"block_{i}")
+            args = (x, context, mask, context_mask, maybe_fold_in(seed, i))
+            if remat:
+                # no global generator is drawn from, so none is saved either
+                x = checkpoint(_run_in_mode, block, self.training, *args,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(*args)
         return x

@@ -41,7 +41,8 @@ class PhotometricTransformerEncoder(nn.Module):
         self.bottleneckfc = SingleLayerMLP(model_dim, bottleneck_dim)
 
     def forward(self, flux: torch.Tensor, time: torch.Tensor, band: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         band_embd = self.bandembd(band)
         flux_embd = self.fluxfc(flux[..., None])
         time_embd = self.time_embd(time)
@@ -50,7 +51,7 @@ class PhotometricTransformerEncoder(nn.Module):
         else:
             tokens = flux_embd + time_embd + band_embd
         x = self.initbottleneck[None].expand(flux.shape[0], -1, -1)
-        h = self.blocks(x, context=tokens, mask=None, context_mask=mask)
+        h = self.blocks(x, context=tokens, mask=None, context_mask=mask, seed=seed)
         return self.bottleneckfc(x + h)
 
 
@@ -73,10 +74,11 @@ class PhotometricTransformerDecoder(nn.Module):
         self.get_photo = SingleLayerMLP(model_dim, 1)
 
     def forward(self, time: torch.Tensor, band: torch.Tensor, bottleneck: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         if self.donotmask:
             mask = None
         x = self.sinusoidal_time_embd(time) + self.bandembd(band)
         context = self.contextfc(bottleneck)
-        h = self.blocks(x, context=context, mask=mask, context_mask=None)
+        h = self.blocks(x, context=context, mask=mask, context_mask=None, seed=seed)
         return self.get_photo(x + h)[..., 0]

@@ -39,7 +39,8 @@ class SpectraTransformerEncoder(nn.Module):
         self.bottleneckfc = SingleLayerMLP(model_dim, bottleneck_dim)
 
     def forward(self, flux: torch.Tensor, wavelength: torch.Tensor, phase: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         flux_lin = self.flux_embd(flux[..., None])
         wl_embd = self.wavelength_embd(wavelength)
         if self.concat:
@@ -52,7 +53,7 @@ class SpectraTransformerEncoder(nn.Module):
             # the phase token is always observed
             mask = torch.cat([mask, mask.new_zeros((mask.shape[0], 1))], dim=1)
         x = self.initbottleneck[None].expand(flux.shape[0], -1, -1)
-        h = self.blocks(x, context=context, mask=None, context_mask=mask)
+        h = self.blocks(x, context=context, mask=None, context_mask=mask, seed=seed)
         return self.bottleneckfc(x + h)
 
 
@@ -74,10 +75,11 @@ class SpectraTransformerDecoder(nn.Module):
         self.get_flux = SingleLayerMLP(model_dim, 1)
 
     def forward(self, wavelength: torch.Tensor, phase: torch.Tensor,
-                bottleneck: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bottleneck: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                seed: Optional[int] = None) -> torch.Tensor:
         x = self.wavelength_embd_layer(wavelength)
         phase_embd = self.phase_embd_layer(phase[..., None])
         context = self.contextfc(bottleneck)
         context = torch.cat([context, phase_embd], dim=1)
-        h = self.blocks(x, context=context, mask=mask, context_mask=None)
+        h = self.blocks(x, context=context, mask=mask, context_mask=None, seed=seed)
         return self.get_flux(x + h)[..., 0]

@@ -1,62 +1,171 @@
-"""Fused masked multi-head attention (forward), a CUDA kernel for Hopper.
+"""Fused masked multi-head attention, forward and backward, CUDA kernels for
+Hopper.
 
 ``fused_attention`` computes, per row and head, softmax(q kᵀ/√Dh + bias) v
 over ``[R, L, E]`` tensors (head h in columns h·Dh:(h+1)·Dh) with a boolean
-key-padding mask (True = ignore) folded in as a −1e9 fp32 logit bias.
+key-padding mask (True = ignore) folded in as a −1e9 fp32 logit bias, and
+attention-weight dropout at ``dropout_rate`` > 0.
 
-It replaces the TPU kernel ``vaesne_tpu/ops/attention.py::_fwd_kernel`` at
-dropout rate 0, with ``csrc/attention_fwd.cu``: one thread per query with an
-online exp2-domain softmax over key chunks staged in shared memory. At the
-flagship grid (982×982, 4 heads, Dh 8) fp32 FMA issue bounds it, not device
-memory: 123 Mflop against 0.5 MB of I/O per row, ~245 flop per byte (the
-design notes are in the CUDA source).
+Kernels, in ``csrc/``:
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes
-``attention_reference``, the plain version of the same function.
+* K1 ``attention_fwd.cu`` replaces ``vaesne_tpu/ops/attention.py::_fwd_kernel``
+  (both rates). One thread per query, an online exp2-domain softmax over
+  key chunks staged in shared memory; with a gradient to come it also writes
+  the row max m and row sum l of the exp2-domain logits.
+* K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: a dq kernel (one thread
+  per query, which also writes the delta row term Σ do·o) and a dk/dv kernel
+  (one thread per key), both recomputing p = exp2(s − m)/l and the dropout
+  mask, neither with atomics.
+
+At the flagship grid (982×982, 4 heads, Dh 8) the fp32 FMA rate bounds both,
+not device memory (the design notes are in the CUDA sources).
+
+**Dropout mask.** The JAX package's own counter hash (``_hash_bits``, the
+stream its kernels use in interpret mode) with its single-draw seeding and
+8-bit threshold: for row r, head h, query q and key j, with the query tile
+qt = min(1024, max(128, ⌈Lq/128⌉·128)),
+
+    block_seed = seed + (r·H + h)·1024 + ⌊q/qt⌋·(qt/128)   (uint32)
+    keep  ⇔  hash(block_seed, q mod qt, j) >> 24  ≥  round(256·rate)
+
+so the keep probability is quantised to a multiple of 1/256 (230/256 at rate
+0.1), while the kept weights are rescaled by 1/(1 − rate) exactly, as in the
+JAX package. ``dropout_keep`` is the plain version of the same function.
+
+A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
+versions (``attention_reference``, ``attention_stats_reference``,
+``attention_backward_reference``), and autograd differentiates the plain
+forward. The mask gets no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-launches = 0  # kernel launches made by fused_attention since the last reset
+launches = 0          # K1 launches (any rate) since the last reset
+dropout_launches = 0  # K1 launches at a dropout rate > 0
+bwd_launches = 0      # K2 launches: two kernels (dq, then dk/dv) per backward
 
 HEAD_DIMS = (4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+LOG2E = 1.4426950408889634
+MASK_BIAS = -1e9
+
+# dropout hash (vaesne_tpu/ops/attention.py::_hash_bits, _dropout_mask)
+Q_TILE = 1024
+DROPOUT_BITS = 8
+_M32 = 0xFFFFFFFF
+_C_SEED, _C_ROW, _C_COL = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
+_C_MIX1, _C_MIX2 = 0x7FEB352D, 0x846CA68B
+
+
+def hash_tile(lq: int) -> int:
+    """The query tile that seeds the dropout stream: min(1024, Lq rounded up
+    to a multiple of 128)."""
+    return min(Q_TILE, max(128, -(-lq // 128) * 128))
+
+
+def drop_threshold(rate: float) -> int:
+    """Keep a weight iff its 8-bit draw is at least this (26 at rate 0.1)."""
+    return min(round(rate * 2 ** DROPOUT_BITS), 2 ** DROPOUT_BITS - 1)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x·c mod 2³² for int64 x in [0, 2³²), in 16-bit halves so that no
+    product leaves the int64 range."""
+    hi = ((x >> 16) * c) & 0xFFFF
+    return ((hi << 16) + (x & 0xFFFF) * c) & _M32
+
+
+def dropout_keep(seed: int, rows: int, num_heads: int, lq: int, lk: int, rate: float,
+                 device=None) -> torch.Tensor:
+    """The kernels' keep mask, bool [rows, H, Lq, Lk], as plain int64 tensor
+    arithmetic (see the module docstring)."""
+    qt = hash_tile(lq)
+    i64 = dict(dtype=torch.int64, device=device)
+    r = torch.arange(rows, **i64).view(-1, 1, 1)
+    h = torch.arange(num_heads, **i64).view(1, -1, 1)
+    q = torch.arange(lq, **i64).view(1, 1, -1)
+    block_seed = (seed + (r * num_heads + h) * 1024 + (q // qt) * (qt // 128)) & _M32
+    row = _mul32(block_seed, _C_SEED) ^ _mul32(q % qt + 1, _C_ROW)
+    col = _mul32(torch.arange(1, lk + 1, **i64), _C_COL)
+    x = row[..., None] ^ col
+    x = x ^ (x >> 16)
+    x = _mul32(x, _C_MIX1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, _C_MIX2)
+    x = x ^ (x >> 16)
+    return (x >> (32 - DROPOUT_BITS)) >= drop_threshold(rate)
+
+
+def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:  # [R, L, E] -> [R, L, H, Dh]
+    return x.reshape(*x.shape[:-1], num_heads, x.shape[-1] // num_heads)
+
+
+def _logits(q, k, key_padding_mask, num_heads):
+    """s = q kᵀ/√Dh + bias, [..., H, Lq, Lk]."""
+    hd = q.shape[-1] // num_heads
+    logits = torch.einsum("...qhd,...khd->...hqk", _split(q, num_heads),
+                          _split(k, num_heads)) / math.sqrt(hd)
+    if key_padding_mask is not None:
+        bias = torch.zeros(key_padding_mask.shape, dtype=logits.dtype, device=logits.device)
+        logits = logits + bias.masked_fill(key_padding_mask, MASK_BIAS)[..., None, None, :]
+    return logits
+
+
+def attention_weights(q: torch.Tensor, k: torch.Tensor,
+                      key_padding_mask: Optional[torch.Tensor], num_heads: int) -> torch.Tensor:
+    """softmax(q kᵀ/√Dh + bias), [..., H, Lq, Lk]."""
+    return torch.softmax(_logits(q, k, key_padding_mask, num_heads), dim=-1)
+
+
+def attend(weights: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The weighted sum of v's heads: weights [..., H, Lq, Lk] → [..., Lq, E]."""
+    out = torch.einsum("...hqk,...khd->...qhd", weights.to(v.dtype), _split(v, num_heads))
+    return out.reshape(*out.shape[:-2], v.shape[-1])
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        key_padding_mask: Optional[torch.Tensor],
-                        num_heads: int, dropout: float = 0.0) -> torch.Tensor:
-    """The plain version: einsum, −1e9 mask bias, softmax, einsum over
-    ``[R, L, E]``. ``dropout`` > 0 drops attention weights (train mode,
-    torch ``nn.MultiheadAttention`` placement)."""
-    e = q.shape[-1]
-    hd = e // num_heads
-
-    def split(x):  # [R, L, E] -> [R, L, H, hd]
-        return x.reshape(*x.shape[:-1], num_heads, hd)
-
-    logits = torch.einsum("...qhd,...khd->...hqk", split(q), split(k)) / math.sqrt(hd)
-    if key_padding_mask is not None:
-        bias = torch.zeros(key_padding_mask.shape, dtype=logits.dtype,
-                           device=logits.device)
-        bias = bias.masked_fill(key_padding_mask, -1e9)
-        logits = logits + bias[..., None, None, :]
-    weights = torch.softmax(logits, dim=-1)
+                        key_padding_mask: Optional[torch.Tensor], num_heads: int,
+                        dropout: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+    """The plain version: einsum, −1e9 mask bias, softmax, dropout of the
+    weights with ``dropout_keep`` (rescaled by 1/(1 − rate)), einsum, over
+    ``[R, L, E]`` (dropout needs exactly one leading axis)."""
+    weights = attention_weights(q, k, key_padding_mask, num_heads)
     if dropout > 0.0:
-        weights = torch.nn.functional.dropout(weights, dropout, training=True)
-    out = torch.einsum("...hqk,...khd->...qhd", weights, split(v))
-    return out.reshape(*out.shape[:-2], e)
+        if seed is None:
+            raise ValueError("attention dropout needs a seed")
+        keep = dropout_keep(seed, q.shape[0], num_heads, q.shape[1], k.shape[1], dropout,
+                            q.device)
+        weights = torch.where(keep, weights * (1.0 / (1.0 - dropout)), 0.0)
+    return attend(weights, v, num_heads)
 
 
-def _check(q, k, v, key_padding_mask, num_heads):
+def attention_stats_reference(q, k, key_padding_mask, num_heads):
+    """The plain version of K1's saved statistics: row max m and row sum l
+    of the exp2-domain logits, fp32 [R, H, Lq] each."""
+    s2 = _logits(q.float(), k.float(), key_padding_mask, num_heads) * LOG2E
+    m = s2.amax(-1)
+    return m, torch.exp2(s2 - m[..., None]).sum(-1)
+
+
+def attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
+                                 dropout: float = 0.0, seed: Optional[int] = None):
+    """The plain version of K2: (dq, dk, dv) by autograd through
+    ``attention_reference``."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = attention_reference(*leaves, key_padding_mask, num_heads, dropout, seed)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("fused_attention takes q [R, Lq, E] and k, v [R, Lk, E]")
     R, lq, e = q.shape
@@ -73,6 +182,10 @@ def _check(q, k, v, key_padding_mask, num_heads):
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape[1] < 1:
         raise ValueError("fused_attention needs at least one key")
+    if not 0.0 <= dropout_rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if dropout_rate > 0.0 and seed is None:
+        raise ValueError("fused_attention: dropout_rate > 0 requires a seed")
     tensors = [q, k, v]
     if key_padding_mask is not None:
         if key_padding_mask.dtype != torch.bool:
@@ -86,44 +199,152 @@ def _check(q, k, v, key_padding_mask, num_heads):
             raise ValueError("fused_attention: all tensors must be on one device")
         if not t.is_contiguous():
             raise ValueError("fused_attention takes contiguous tensors")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_attention runs on CUDA or CPU tensors, not {q.device}")
 
 
-def _kernel_fn():
-    fn = _build.load("attention_fwd").vaesne_attention_fwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+_p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+
+
+def _lib_fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
+def _dropout_args(rate, seed):
+    """(seed as uint32, threshold, 1/(1 − rate)) for the kernels."""
+    return (0 if seed is None else seed & _M32), drop_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
+
+
+def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        key_padding_mask: Optional[torch.Tensor], num_heads: int,
+                        dropout_rate: float = 0.0, seed: Optional[int] = None,
+                        stats: bool = True):
+    """K1: (out [R, Lq, E] in q's dtype, m, l) with m, l the fp32 row max
+    and row sum [R, H, Lq] of the exp2-domain logits (None unless
+    ``stats``). Launches on the current stream without synchronising."""
+    _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    if q.device.type == "cpu":
+        out = attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+        if not stats:
+            return out, None, None
+        return (out, *attention_stats_reference(q, k, key_padding_mask, num_heads))
+    R, lq, e = q.shape
+    out = torch.empty_like(q)
+    m = l = None
+    if stats:
+        m = torch.empty(R, num_heads, lq, dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    if R == 0 or lq == 0:
+        return out, m, l
+    fn = _lib_fn("attention_fwd", "vaesne_attention_fwd",
+                 [_p] * 7 + [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p])
+    seed32, thr, scale = _dropout_args(dropout_rate, seed)
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                out.data_ptr(), _ptr(m), _ptr(l), R, lq, k.shape[1], num_heads,
+                e // num_heads, _DTYPE_CODES[q.dtype], seed32, thr, scale,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "attention_fwd")
+    global launches, dropout_launches
+    launches += 1
+    dropout_launches += dropout_rate > 0.0
+    return out, m, l
+
+
+def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
+                        num_heads: int, dropout_rate: float = 0.0,
+                        seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """K2: (dq, dk, dv) in q's dtype, from the forward's inputs, its output
+    ``out`` and statistics, and the output gradient ``dout``. Launches the
+    dq kernel (which also writes the fp32 delta row term Σ_d dout·out),
+    then the dk/dv kernel, on the current stream."""
+    _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
+                                            dropout_rate, seed)
+    R, lq, e = q.shape
+    lk, hd = k.shape[1], e // num_heads
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+                           ("row_max", row_max, (R, num_heads, lq)),
+                           ("row_sum", row_sum, (R, num_heads, lq))):
+        want = torch.float32 if name.startswith("row") else q.dtype
+        if (t.shape != shape or t.dtype != want or t.device != q.device
+                or not t.is_contiguous()):
+            raise ValueError(f"fused_attention_bwd: {name} must be a contiguous {want} "
+                             f"{tuple(shape)} tensor on {q.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if R == 0 or lq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty_like(row_max)
+    tail = [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p]
+    fn_dq = _lib_fn("attention_bwd", "vaesne_attention_bwd_dq", [_p] * 10 + tail)
+    fn_dkdv = _lib_fn("attention_bwd", "vaesne_attention_bwd_dkdv", [_p] * 10 + tail)
+    args = (R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
+            *_dropout_args(dropout_rate, seed), torch.cuda.current_stream(q.device).cuda_stream)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask))
+    stats = (row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr())
+    global bwd_launches
+    with torch.cuda.device(q.device):
+        _raise_on(fn_dq(*common, out.data_ptr(), dout.data_ptr(), *stats, dq.data_ptr(),
+                        *args), "attention_bwd dq")
+        bwd_launches += 1
+        _raise_on(fn_dkdv(*common, dout.data_ptr(), *stats, dk.data_ptr(), dv.data_ptr(),
+                          *args), "attention_bwd dk/dv")
+        bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. The statistics and the output ride along as
+    saved tensors; under ``torch.utils.checkpoint`` the forward re-runs in
+    the backward with the same seed, so it regenerates the same mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
+        out, m, l = fused_attention_fwd(q, k, v, key_padding_mask, num_heads,
+                                        dropout_rate, seed, stats=True)
+        ctx.save_for_backward(q, k, v, key_padding_mask, out, m, l)
+        ctx.config = (num_heads, dropout_rate, seed)
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, dout, _dm, _dl):
+        q, k, v, key_padding_mask, out, m, l = ctx.saved_tensors
+        dq, dk, dv = fused_attention_bwd(q, k, v, key_padding_mask, out, m, l,
+                                         dout.to(q.dtype).contiguous(), *ctx.config)
+        return dq, dk, dv, None, None, None, None
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    key_padding_mask: Optional[torch.Tensor],
-                    num_heads: int) -> torch.Tensor:
-    """softmax(q_h k_hᵀ/√Dh + bias) v_h for every head h, fused.
+                    key_padding_mask: Optional[torch.Tensor], num_heads: int,
+                    dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+    """softmax(q_h k_hᵀ/√Dh + bias) v_h for every head h, fused, with
+    attention-weight dropout at ``dropout_rate`` (which needs ``seed``; the
+    same seed gives the same mask).
 
     q [R, Lq, E]; k, v [R, Lk, E]; ``key_padding_mask`` bool [R, Lk]
     (True = ignore) or None. Returns [R, Lq, E] in q's dtype (float32 or
-    bfloat16; all arithmetic is fp32). On CUDA tensors it launches the
-    kernel on the current stream without synchronising; on CPU tensors it
-    computes ``attention_reference``."""
-    _check(q, k, v, key_padding_mask, num_heads)
+    bfloat16; all arithmetic is fp32). On CUDA tensors it launches K1, and
+    K2 in the backward when q, k or v needs a gradient; on CPU tensors it
+    computes ``attention_reference``, which autograd differentiates."""
+    _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_padding_mask, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"fused_attention runs on CUDA or CPU tensors, not {q.device}")
-    R, lq, e = q.shape
-    out = torch.empty_like(q)
-    if R == 0 or lq == 0:
-        return out
-    fn = _kernel_fn()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                0 if key_padding_mask is None else key_padding_mask.data_ptr(),
-                out.data_ptr(), R, lq, k.shape[1], num_heads, e // num_heads,
-                _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"attention_fwd kernel launch failed: cudaError {rc}")
-    global launches
-    launches += 1
-    return out
+        return attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, key_padding_mask, num_heads, dropout_rate,
+                                     seed)[0]
+    return fused_attention_fwd(q, k, v, key_padding_mask, num_heads, dropout_rate, seed,
+                               stats=False)[0]

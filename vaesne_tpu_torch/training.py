@@ -1,0 +1,228 @@
+"""Training loop of the port: the train step, gradient accumulation and an
+epoch loop.
+
+Counterparts of ``vaesne_tpu/training.py``: ``adamw`` (AdamW with torch's
+weight decay 1e-2 and a global-norm clip, as the JAX package chains
+``optax.clip_by_global_norm`` before ``optax.adamw``), ``TrainState``,
+``make_train_step``, ``accumulate_gradients``, ``epoch_batches``,
+``train_epoch`` and ``fit``. Objectives are maximised, so the step minimises
+``-loss_fn`` and reports that, as the JAX package does.
+
+A loss function is ``loss_fn(model, batch, seed) -> objective``, the
+counterpart of the JAX ``loss_fn(model, variables, batch, key)``: the model
+holds its parameters, and ``seed`` is an integer drawn per step from the
+state's CPU generator (``utils.rng``). The entry points run on ``"cuda"``
+unless the caller passes ``device="cpu"``, and raise when no card is
+present. The step runs eagerly: a CUDA graph of the step is later work, as
+is ``make_scan_epoch``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .utils.rng import draw_seed, fold_in
+
+LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` or, by default, the CUDA card; raises rather than run on
+    the CPU when no card is present and the CPU was not asked for."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """AdamW with a global-norm gradient clip ahead of the update (the
+    counterpart of the JAX ``adamw`` chain). ``init`` builds the torch
+    optimizer for a model's parameters."""
+
+    lr: float
+    weight_decay: float = 1e-2
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: Optional[float] = 10.0
+
+    def init(self, params) -> torch.optim.AdamW:
+        return torch.optim.AdamW(params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
+                                 weight_decay=self.weight_decay)
+
+
+def adamw(lr: float, weight_decay: float = 1e-2, b1: float = 0.9, b2: float = 0.999,
+          eps: float = 1e-8, grad_clip: Optional[float] = 10.0) -> AdamW:
+    """AdamW with torch defaults and global-norm clipping at ``grad_clip``
+    (None: no clip)."""
+    return AdamW(lr, weight_decay, b1, b2, eps, grad_clip)
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by max_norm/‖g‖ when the global norm ‖g‖ is
+    at least ``max_norm``, exactly as ``optax.clip_by_global_norm`` does
+    (``clip_grad_norm_`` adds 1e-6 to the norm). Returns ‖g‖; no host sync."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(list(grads), factor)
+    return norm
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything a step mutates: the model (its parameters), the torch
+    optimizer, the step count and the CPU generator that seeds each step."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int
+    generator: torch.Generator
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: AdamW, seed: int = 0,
+               device=None) -> "TrainState":
+        """Move ``model`` to ``device`` (default: the card), put it in train
+        mode and build its optimizer."""
+        model = model.to(resolve_device(device)).train()
+        return cls(model, optimizer.init(model.parameters()), 0,
+                   torch.Generator().manual_seed(seed))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
+def _leaves(tree) -> List[Any]:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _leaves(t)]
+    return [tree]
+
+
+def to_device(batch, device: torch.device):
+    """A nested tuple of numpy arrays or tensors on ``device`` (numpy int32
+    band indices become int64, the embedding's index type)."""
+    def move(a):
+        if isinstance(a, np.ndarray):
+            a = torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a)
+        return a.to(device, non_blocking=True)
+    return _tree_map(move, batch)
+
+
+def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tensor],
+                         model: nn.Module, batch, seed: int, accum_steps: int,
+                         reduction: str = "mean") -> torch.Tensor:
+    """Microbatched value-and-grad: the batch axis is cut into
+    ``accum_steps`` equal microbatches, each backward adds into the
+    parameters' ``.grad``, so peak activation memory is one microbatch's.
+    ``reduction`` must match the objective's batch reduction: ``"mean"``
+    averages the microbatch losses and gradients, ``"sum"`` (``m_iwae``)
+    sums them. Microbatch i takes ``fold_in(seed, i)``. Returns the loss."""
+    if reduction not in ("mean", "sum"):
+        raise ValueError(f"reduction must be 'mean' or 'sum', got {reduction!r}")
+    n = _leaves(batch)[0].shape[0]
+    if n % accum_steps != 0:
+        raise ValueError(f"batch size {n} not divisible by accum_steps {accum_steps}")
+    size = n // accum_steps
+    total = None
+    for i in range(accum_steps):
+        micro = _tree_map(lambda a: a[i * size:(i + 1) * size], batch)
+        loss = neg_loss_fn(model, micro, fold_in(seed, i))
+        loss.backward()
+        total = loss.detach() if total is None else total + loss.detach()
+    if reduction == "mean":
+        inv = 1.0 / accum_steps
+        torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
+        total = total * inv
+    return total
+
+
+def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
+                    accum_steps: int = 1, accum_reduction: str = "mean", device=None,
+                    precision: str = "fp32"):
+    """The train step ``step(state, batch) -> (state, loss)``: gradients of
+    ``-loss_fn`` (accumulated over ``accum_steps`` microbatches when > 1),
+    the global-norm clip, then the AdamW update. ``batch`` is moved to
+    ``device`` (default: the card). ``precision="bf16"`` runs the forward
+    under bf16 autocast over the fp32 weights (the JAX package's
+    ``VAESNE_BF16``). The loss stays on the device."""
+    device = resolve_device(device)
+    if precision not in ("fp32", "bf16"):
+        raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+
+    def neg_loss(m, b, seed):
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=precision == "bf16"):
+            return -loss_fn(m, b, seed)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step")
+        seed = draw_seed(state.generator)
+        batch = to_device(batch, device)
+        state.optimizer.zero_grad(set_to_none=True)
+        if accum_steps == 1:
+            loss = neg_loss(model, batch, seed)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
+                                        accum_reduction)
+        if optimizer.grad_clip is not None:
+            clip_by_global_norm([p.grad for p in model.parameters() if p.grad is not None],
+                                optimizer.grad_clip)
+        state.optimizer.step()
+        state.step += 1
+        return state, loss
+
+    return step
+
+
+def epoch_batches(generator: torch.Generator, data, batch_size: int,
+                  shuffle: bool = True) -> Iterator[Any]:
+    """Minibatches of ``data`` (a nested tuple of arrays or tensors with one
+    leading sample axis) in an order drawn from ``generator``; the trailing
+    remainder is dropped so every step has one shape."""
+    n = _leaves(data)[0].shape[0]
+    steps = n // batch_size
+    if steps == 0:
+        raise ValueError(f"batch_size {batch_size} exceeds dataset size {n}")
+    perm = torch.randperm(n, generator=generator) if shuffle else torch.arange(n)
+    for i in range(steps):
+        idx = perm[i * batch_size:(i + 1) * batch_size]
+        yield _tree_map(lambda a: a[idx.numpy()] if isinstance(a, np.ndarray)
+                        else a[idx.to(a.device)], data)
+
+
+def train_epoch(state: TrainState, step_fn, data, batch_size: int,
+                generator: torch.Generator) -> Tuple[TrainState, float]:
+    """One epoch over ``data``; returns (state, mean loss). The step losses
+    stay on the device until the one sync at the end of the epoch."""
+    losses = []
+    for batch in epoch_batches(generator, data, batch_size):
+        state, loss = step_fn(state, batch)
+        losses.append(loss)
+    if not losses:
+        return state, 0.0
+    return state, float(torch.stack(losses).mean())
+
+
+def fit(state: TrainState, step_fn, data, batch_size: int, epochs: int,
+        generator: torch.Generator,
+        callback: Optional[Callable[[int, TrainState, float], None]] = None):
+    """``epochs`` epochs, each shuffled from ``generator``, with an optional
+    per-epoch ``callback(epoch, state, loss)``. Returns (state, losses)."""
+    losses = []
+    for epoch in range(epochs):
+        state, loss = train_epoch(state, step_fn, data, batch_size, generator)
+        losses.append(loss)
+        if callback is not None:
+            callback(epoch, state, loss)
+    return state, losses

@@ -1,5 +1,5 @@
-"""Weights of the port: the bridge from the JAX package's parameter tree,
-and a seeded initialisation.
+"""Weights of the port: the bridge from the JAX package's parameter tree
+and back, and a seeded initialisation.
 
 The port names its submodules after the flax parameter tree, so the bridge
 is mechanical: ``vaes_0`` ↔ ``vaes.0``, every other scope name as it is, and
@@ -74,6 +74,48 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
                          f"parameter {missing}; flax parameters with no port "
                          f"key {sorted(unused)}")
     module.load_state_dict(new_state, strict=True)
+
+
+_TORCH_LEAF = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+               nn.LayerNorm: {"weight": "scale", "bias": "bias"},
+               nn.Embedding: {"weight": "embedding"}}
+
+
+def to_jax_params(module: nn.Module,
+                  values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Dict]:
+    """The inverse of ``load_jax_params``: the flax ``{"params": …}`` tree
+    of numpy arrays holding ``module``'s parameters, or ``values`` keyed by
+    parameter name instead (gradients, say). Dense kernels come out
+    transposed to [in, out]."""
+    values = dict(module.named_parameters()) if values is None else values
+    tree: Dict[str, Dict] = {}
+    for mod_name, mod in module.named_modules():
+        leaves = _TORCH_LEAF.get(type(mod), {})
+        own = [n for n, _ in mod.named_parameters(recurse=False)]
+        for name in own:
+            leaf = leaves.get(name, name)
+            if leaf not in _LEAF:
+                raise ValueError(f"{mod_name}.{name}: no flax counterpart")
+            key = f"{mod_name}.{name}" if mod_name else name
+            value = values[key].detach().cpu().numpy()
+            if leaf == "kernel":
+                value = value.T
+            node = tree
+            for scope in (_list_scope(mod_name) if mod_name else []):
+                node = node.setdefault(scope, {})
+            node[leaf] = value
+    return {"params": tree}
+
+
+def _list_scope(name: str):
+    """``vaes.0.enc.blocks`` → ``["vaes_0", "enc", "blocks"]``."""
+    parts, out = name.split("."), []
+    for p in parts:
+        if p.isdigit() and out and _LIST_SCOPE.match(f"{out[-1]}_{p}"):
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    return out
 
 
 @torch.no_grad()
