@@ -28,8 +28,10 @@ sm_90a), nvcc and Triton. Phases, each printing its own lines:
      and 5 under bf16 autocast, every kernel's launches per step checked;
   8. one train step's loss and gradients on the card against the CPU, at
      dropout 0 on pinned posterior noise;
-  9. training times: each kernel at the training shapes, its bound, its
-     plain version and its library yardstick, and a profile of one step;
+  9. training times: each kernel at the training shapes in fp32 and bf16,
+     its bound beside the exp2 and dropout-hash floors, its plain version
+     and its library yardstick (K1 at rate 0 and 0.1 beside SDPA without
+     and with dropout), and a profile of one step;
      K1 at rate 0.1 and K2 are held against their plain versions on the
      same R = 768 inputs.
 
@@ -84,6 +86,10 @@ BIG_SPECTRA = 1e10  # the spectra likelihood's mask variance
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 MUFU_PER_SM_CLK = 16  # exp2 results per SM per clock
+INT32_PER_SM_CLK = 64  # 32-bit integer ALU results per SM per clock (half the fp32 rate)
+# integer ALU operations of the dropout hash per (query, key, head): xor,
+# shift, xor, compare (its two multiplies run on the FMA pipe)
+HASH_OPS = 4
 
 
 def log(phase, msg):
@@ -207,6 +213,16 @@ def laplace_bound(rows, n, x_rows, backward):
     nbytes = rows * n * 4 + x_rows * n * 4 + rows * n + rows * 4
     nbytes += rows * n * 4 if backward else 0
     return bound(nbytes, 7 * rows * n, PEAK_FLOPS[torch.float32])
+
+
+def unit_floors(pairs, sm_clock_mhz):
+    """(exp2 floor ms, hash floor ms) of ``pairs`` (query, key, head) pairs:
+    one exp2 each on the SFU, and the dropout hash's integer operations on
+    the INT32 pipe, at the max SM clock. Floors of one unit each, printed
+    beside the bound, which they do not change."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    per_ms = n_sm * sm_clock_mhz * 1e3  # SM clocks per ms, summed over the SMs
+    return pairs / (MUFU_PER_SM_CLK * per_ms), pairs * HASH_OPS / (INT32_PER_SM_CLK * per_ms)
 
 
 def _sdpa_operands(q, k, v, mask):
@@ -491,9 +507,7 @@ def phase_times(model, seed, sm_clock_mhz):
             ms = time_ms(lambda: attention.fused_attention(qd, kd, vd, mask, HEADS))
             lib = time_ms(sdpa_call(qd, kd, vd, mask))
             bound, by = attention_bound(rows, NS, NS, dtype, True)
-            exps = rows * HEADS * NS * NS
-            n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-            exp_ms = exps / (n_sm * MUFU_PER_SM_CLK * sm_clock_mhz * 1e6) * 1e3
+            exp_ms = unit_floors(rows * HEADS * NS * NS, sm_clock_mhz)[0]
             name = str(dtype).split(".")[-1]
             log(6, f"attention_fwd R={rows} 982x982 {name}: {ms:.3f} ms; bound {bound:.3f} ms "
                    f"({by}); exp2 floor {exp_ms:.3f} ms; library sdpa {lib:.3f} ms")
@@ -546,15 +560,15 @@ def reset_counts():
 
 def train_step_prediction(batch_size, dropout):
     """Launches per train step, from the dispatch rules: each routed grid
-    launches K1 in the forward and again in remat's re-run, and K2's two
-    kernels in the backward; decoders run on M·K·B rows (in train mode:
+    launches K1 in the forward and again in remat's re-run, and K2 once in
+    the backward; decoders run on M·K·B rows (in train mode:
     dropout), encoders on B rows (always deterministic); each of the M
     experts' likelihoods on a grid of 128 points or more launches K3 and
     K4 once."""
     dec = sum(decoder_launches(d, M * K_TRAIN * batch_size) for d in (0, 1))
     enc = sum(encoder_launches(m, batch_size) for m in (0, 1))
     lik = M * sum(laplace_routes_to_kernel(n) for n in (LP, NS))
-    return (2 * dec if dropout > 0 else 0, 2 * (dec + enc), 2 * (dec + enc), lik, lik)
+    return (2 * dec if dropout > 0 else 0, 2 * (dec + enc), dec + enc, lik, lik)
 
 
 def m_iwae_loss(model, batch, seed):
@@ -676,14 +690,16 @@ def phase_train_card_vs_cpu(seed):
     assert rel_lw_grad <= 1e-4 and rel_grad <= 1e-3, (rel_lw_grad, rel_grad)
 
 
-def phase_train_times(train, seed):
+def phase_train_times(train, seed, sm_clock_mhz):
     """Each training kernel at the training shapes: K1 (with its saved
     statistics) and K2 at R = M·K·B = 768 rows of 982x982, 20% of keys
     masked and row 0 fully masked, rate 0.1; K3 and K4 at [K·B, 982] rows
     over [B, 982] data. Beside each: its bound, its plain version and, for
     K1, K2 and K1 + K2, scaled_dot_product_attention (timed here only).
     K1 and K2 are also held against their plain versions on these very
-    inputs, with phase 3's tolerances. Then a torch.profiler breakdown of
+    inputs, with phase 3's tolerances. Beside the bounds: the exp2 floor
+    and the hash's integer floor at rate 0.1 (one exp2 and one hash per
+    pair in K1 and in K2). Then a torch.profiler breakdown of
     one train step in each precision."""
     rows, chunk, dseed = M * K_TRAIN * B_TRAIN, 64, 5
     q, k, v, mask = attention_inputs(rows, NS, NS, True, seed=8, full_row=True)
@@ -732,18 +748,22 @@ def phase_train_times(train, seed):
         else:
             assert all(e <= 2e-2 for e in rel), rel
         del out, m, l, grads
+        lib_f0 = time_ms(sdpa_call(qd, kd, vd, mask))
         lib_f = time_ms(sdpa_call(qd, kd, vd, mask, DROPOUT))
         lib_b = time_ms(sdpa_bwd_call(qd, kd, vd, mask, DROPOUT))
         lib_fb = time_ms(sdpa_train_call(qd, kd, vd, mask, DROPOUT))
         b_f = attention_bound(rows, NS, NS, dtype, True, stats=True)
         b_b = attention_bwd_bound(rows, NS, NS, dtype)
-        log(9, f"R={rows} 982x982 {name}: K1 rate 0 {fwd0:.3f} ms, rate 0.1 {fwd:.3f} ms "
-               f"(bound {b_f[0]:.3f} ms, {b_f[1]}; library sdpa dropout 0.1 {lib_f:.3f} ms); "
-               f"K2 {bwd:.3f} ms (bound {b_b[0]:.3f} ms, {b_b[1]}; library sdpa backward "
-               f"{lib_b:.3f} ms); K1 + K2 {fwd + bwd:.3f} ms, library sdpa forward + "
-               f"backward {lib_fb:.3f} ms")
-        res[dtype] = dict(fwd0=fwd0, fwd=fwd, bwd=bwd, lib_f=lib_f, lib_b=lib_b, lib_fb=lib_fb,
-                          b_f=b_f, b_b=b_b)
+        exp_f, hash_f = unit_floors(rows * HEADS * NS * NS, sm_clock_mhz)
+        log(9, f"R={rows} 982x982 {name}: K1 rate 0 {fwd0:.3f} ms (library sdpa no dropout "
+               f"{lib_f0:.3f} ms), rate 0.1 {fwd:.3f} ms (library sdpa dropout 0.1 "
+               f"{lib_f:.3f} ms); bound {b_f[0]:.3f} ms ({b_f[1]}), exp2 floor {exp_f:.3f} ms, "
+               f"hash floor at rate 0.1 {hash_f:.3f} ms; K2 {bwd:.3f} ms (bound {b_b[0]:.3f} "
+               f"ms, {b_b[1]}; the same exp2 and hash floors; library sdpa backward "
+               f"{lib_b:.3f} ms); K1 + K2 {fwd + bwd:.3f} ms, "
+               f"library sdpa forward + backward {lib_fb:.3f} ms")
+        res[dtype] = dict(fwd0=fwd0, fwd=fwd, bwd=bwd, lib_f0=lib_f0, lib_f=lib_f, lib_b=lib_b,
+                          lib_fb=lib_fb, b_f=b_f, b_b=b_b)
         del qd, kd, vd, dd
         torch.cuda.empty_cache()
     del q, k, v, mask, dout, want_out, want_grads
@@ -850,29 +870,34 @@ def main(argv=None):
     torch.cuda.empty_cache()
     train_launches, train = phase_training(args.seed)
     phase_train_card_vs_cpu(args.seed)
-    t = phase_train_times(train, args.seed)
+    t = phase_train_times(train, args.seed, sm_clock)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
-    f32 = t[torch.float32]
+    ms16, _, _, lib16 = res[(800, torch.bfloat16)]
+    f32, b16 = t[torch.float32], t[torch.bfloat16]
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], t["err_f"])
     errs["attention_bwd"] = max(errs["attention_bwd"], t["err_b"])
     attn_src, lap_src = "vaesne_tpu_torch/csrc/attention_{}.cu", "vaesne_tpu_torch/ops/laplace.py"
     rows = [
         ("attention_fwd", "cuda", attn_src.format("fwd"), "vaesne_tpu/ops/attention.py:304",
-         serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib),
+         serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib, ms16, lib16),
         ("attention_fwd_dropout", "cuda", attn_src.format("fwd"),
          "vaesne_tpu/ops/attention.py:304", train_launches["K1 rate>0"],
-         errs["attention_fwd_dropout"], f32["fwd"], t["plain_f"], f32["b_f"], f32["lib_f"]),
+         errs["attention_fwd_dropout"], f32["fwd"], t["plain_f"], f32["b_f"], f32["lib_f"],
+         b16["fwd"], b16["lib_f"]),
         ("attention_bwd", "cuda", attn_src.format("bwd"), "vaesne_tpu/ops/attention.py:353",
          train_launches["K2"], errs["attention_bwd"], f32["bwd"], t["plain_b"], f32["b_b"],
-         f32["lib_b"]),
+         f32["lib_b"], b16["bwd"], b16["lib_b"]),
         ("laplace_fwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:30",
-         train_launches["K3"], errs["laplace_fwd"], t["k3"], t["p3"], t["b3"], None),
+         train_launches["K3"], errs["laplace_fwd"], t["k3"], t["p3"], t["b3"], None, None, None),
         ("laplace_bwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:38",
-         train_launches["K4"], errs["laplace_bwd"], t["k4"], t["p4"], t["b4"], None),
+         train_launches["K4"], errs["laplace_bwd"], t["k4"], t["p4"], t["b4"], None, None, None),
     ]
+    # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
+    # inputs (null for the fp32-only Laplace kernels)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
     print(json.dumps({"kernels": [
-        dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9])
+        dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
+             ms_bf16=r[10], library_ms_bf16=r[11])
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -244,3 +244,16 @@ def test_dropout_needs_a_seed_and_a_rate_below_one():
                                fused_attention(q, k, v, mask, 2, 0.5, 3))
     assert not torch.allclose(fused_attention(q, k, v, mask, 2, 0.5, 3),
                               fused_attention(q, k, v, mask, 2, 0.5, 4))
+
+
+def test_misaligned_views_are_copied_for_the_kernels():
+    """The kernels stage rows with 16-byte copies: a view whose data does
+    not start on 16 bytes reaches them as an aligned copy, equal in value;
+    an aligned tensor passes through as it is."""
+    buf = torch.arange(65, dtype=torch.float32)
+    view = buf[1:].view(2, 4, 8)
+    assert view.data_ptr() % 16 != 0
+    copy = port_attention._aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    aligned = torch.zeros(2, 4, 8)
+    assert port_attention._aligned(aligned) is aligned

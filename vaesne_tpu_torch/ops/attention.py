@@ -9,16 +9,21 @@ attention-weight dropout at ``dropout_rate`` > 0.
 Kernels, in ``csrc/``:
 
 * K1 ``attention_fwd.cu`` replaces ``vaesne_tpu/ops/attention.py::_fwd_kernel``
-  (both rates). One thread per query, an online exp2-domain softmax over
-  key chunks staged in shared memory; with a gradient to come it also writes
-  the row max m and row sum l of the exp2-domain logits.
-* K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: a dq kernel (one thread
-  per query, which also writes the delta row term Σ do·o) and a dk/dv kernel
-  (one thread per key), both recomputing p = exp2(s − m)/l and the dropout
-  mask, neither with atomics.
+  (both rates). A warp per 16 queries, an online exp2-domain softmax over
+  key chunks staged in shared memory by cp.async; with a gradient to come it
+  also writes the row max m and row sum l of the exp2-domain logits.
+* K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: one kernel, a block per
+  (row, head) and a warp per 16 keys, which recomputes p = exp2(s − m)/l
+  and the dropout mask once per (query, key, head), sums dk and dv in
+  registers and dq in an fp32 scratch of its own, in a fixed order and
+  without atomics, so two runs give equal bits.
 
-At the flagship grid (982×982, 4 heads, Dh 8) the fp32 FMA rate bounds both,
-not device memory (the design notes are in the CUDA sources).
+Every product runs on the tensor cores (``mma.sync`` m16n8k8): in bf16 with
+fp32 accumulation, in fp32 as 3xTF32 (each operand split into two TF32
+parts, three products), which keeps fp32 accuracy. At the flagship grid
+(982×982, 4 heads, Dh 8) one exp2 per (query, key, head) and the scalar
+instructions around it bound both kernels, not the tensor cores or device
+memory (the design notes are in the CUDA sources).
 
 **Dropout mask.** The JAX package's own counter hash (``_hash_bits``, the
 stream its kernels use in interpret mode) with its single-draw seeding and
@@ -50,7 +55,7 @@ from . import _build
 
 launches = 0          # K1 launches (any rate) since the last reset
 dropout_launches = 0  # K1 launches at a dropout rate > 0
-bwd_launches = 0      # K2 launches: two kernels (dq, then dk/dv) per backward
+bwd_launches = 0      # K2 launches: one per backward
 
 HEAD_DIMS = (4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -222,6 +227,12 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on 16 bytes (a
+    view at an odd offset): the kernels stage rows with 16-byte cp.async."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _raise_on(rc: int, what: str):
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
@@ -241,6 +252,7 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return out, None, None
         return (out, *attention_stats_reference(q, k, key_padding_mask, num_heads))
     R, lq, e = q.shape
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     m = l = None
     if stats:
@@ -267,9 +279,9 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                         num_heads: int, dropout_rate: float = 0.0,
                         seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """K2: (dq, dk, dv) in q's dtype, from the forward's inputs, its output
-    ``out`` and statistics, and the output gradient ``dout``. Launches the
-    dq kernel (which also writes the fp32 delta row term Σ_d dout·out),
-    then the dk/dv kernel, on the current stream."""
+    ``out`` and statistics, and the output gradient ``dout``. Launches one
+    kernel on the current stream, with fp32 scratch for the delta row term
+    Σ_d dout·out and the dq sums."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
@@ -284,25 +296,24 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                 or not t.is_contiguous()):
             raise ValueError(f"fused_attention_bwd: {name} must be a contiguous {want} "
                              f"{tuple(shape)} tensor on {q.device}")
+    q, k, v, out, dout = (_aligned(t) for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if R == 0 or lq == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty_like(row_max)
-    tail = [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p]
-    fn_dq = _lib_fn("attention_bwd", "vaesne_attention_bwd_dq", [_p] * 10 + tail)
-    fn_dkdv = _lib_fn("attention_bwd", "vaesne_attention_bwd_dkdv", [_p] * 10 + tail)
-    args = (R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
-            *_dropout_args(dropout_rate, seed), torch.cuda.current_stream(q.device).cuda_stream)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask))
-    stats = (row_max.data_ptr(), row_sum.data_ptr(), delta.data_ptr())
-    global bwd_launches
+    dq_acc = torch.empty(R, num_heads, lq, hd, dtype=torch.float32, device=q.device)
+    fn = _lib_fn("attention_bwd", "vaesne_attention_bwd",
+                 [_p] * 13 + [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p])
     with torch.cuda.device(q.device):
-        _raise_on(fn_dq(*common, out.data_ptr(), dout.data_ptr(), *stats, dq.data_ptr(),
-                        *args), "attention_bwd dq")
-        bwd_launches += 1
-        _raise_on(fn_dkdv(*common, dout.data_ptr(), *stats, dk.data_ptr(), dv.data_ptr(),
-                          *args), "attention_bwd dk/dv")
-        bwd_launches += 1
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
+                out.data_ptr(), dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
+                delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
+                *_dropout_args(dropout_rate, seed),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "attention_bwd")
+    global bwd_launches
+    bwd_launches += 1
     return dq, dk, dv
 
 
@@ -337,7 +348,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [R, Lq, E]; k, v [R, Lk, E]; ``key_padding_mask`` bool [R, Lk]
     (True = ignore) or None. Returns [R, Lq, E] in q's dtype (float32 or
-    bfloat16; all arithmetic is fp32). On CUDA tensors it launches K1, and
+    bfloat16; softmax statistics and sums in fp32). On CUDA tensors it launches K1, and
     K2 in the backward when q, k or v needs a gradient; on CPU tensors it
     computes ``attention_reference``, which autograd differentiates."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
