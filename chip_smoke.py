@@ -11,7 +11,8 @@ sm_90a), nvcc and Triton. Phases, each printing its own lines:
   2. build: every CUDA kernel under vaesne_tpu_torch/csrc/ with nvcc (the
      Triton kernels compile at their first launch, in phase 3);
   3. each kernel against its plain PyTorch version on the card at the
-     shapes the two paths give it: K1 attention forward at rate 0 and 0.1,
+     shapes the paths give it (serving, the B = 192 step, the B = 16
+     drivers of phase 10): K1 attention forward at rate 0 and 0.1,
      its measured keep rate, K2 attention backward against autograd
      through the plain version, K3/K4 masked Laplace forward and backward;
   4. the serving path at the flagship model's full width (random weights
@@ -33,7 +34,17 @@ sm_90a), nvcc and Triton. Phases, each printing its own lines:
      and its library yardstick (K1 at rate 0 and 0.1 beside SDPA without
      and with dropout), and a profile of one step;
      K1 at rate 0.1 and K2 are held against their plain versions on the
-     same R = 768 inputs.
+     same R = 768 inputs; K3 and K4 also at the drivers' [32, 982], each
+     beside one torch.sum over the same rows;
+ 10. the training drivers at the flagship widths on synthetic data from
+     --seed, checkpoints and logs under build/chip_smoke/: (a)
+     train_photospectra.main for 3 epochs, saving each, every epoch's
+     launches checked; (b) 2 epochs into another directory, then resumed
+     to 3, equal to (a); (c) InferenceServer.from_checkpoint on (a)'s
+     directory, crossmodal_ci on 32 held-out events equal bitwise to a
+     server over (a)'s model; (d) one epoch of each other driver; (e) the
+     driver's samples/s per epoch of (a), and a profile of one epoch of
+     the driver resumed from (a)'s checkpoint.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -45,6 +56,8 @@ import argparse
 import contextlib
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -67,8 +80,18 @@ from vaesne_tpu_torch import (
     make_train_step,
     objectives,
 )
+from vaesne_tpu_torch.data import multimodal_tuple
+from vaesne_tpu_torch.experiments import (
+    train_photometry,
+    train_photospectra,
+    train_spectra,
+    train_ztf_photospect,
+    train_ztf_spectra,
+)
+from vaesne_tpu_torch.experiments.common import resolve_dataset
 from vaesne_tpu_torch.ops import _build, laplace_routes_to_kernel, routes_to_kernel
 from vaesne_tpu_torch.training import to_device
+from vaesne_tpu_torch.utils.config import PhotoSpectraMMVAEConfig
 
 # the flagship model (vaesne_tpu/experiments/train_photospectra.py, bench.py)
 NUM_BANDS, LATENT_LEN, LATENT_DIM = 6, 4, 4
@@ -80,6 +103,9 @@ K_SERVE = 100
 B_TRAIN, K_TRAIN, DROPOUT, LR, TRAIN_STEPS = 192, 2, 0.1, 1e-4, 5
 M = 2  # modalities: every decoder runs on M·K·B rows
 BIG_SPECTRA = 1e10  # the spectra likelihood's mask variance
+# the flagship driver's batch (PhotoSpectraMMVAEConfig) and phase 10's run
+B_DRIVER, DRIVER_EPOCHS, N_HELD_OUT = 16, 3, 32
+SMOKE_DIR = os.path.join("build", "chip_smoke")
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, fp32
 # FMA-pipe flop/s, bf16 tensor-core flop/s
@@ -353,10 +379,11 @@ def phase_kernel_vs_plain():
                 uniform = v[0].mean(0).expand(lq, -1)
                 assert torch.allclose(out[0], uniform, atol=1e-5), label
     keep_rate_check()
-    # K2 at the training path's grids: 982x982 (R small: the plain version
-    # materialises int64 hash tensors of R·H·982² entries), 982x5, 60x60
+    # K2 at the training path's grids: 982x982 at the drivers' R = M·K·16 =
+    # 64 (the plain version materialises int64 hash tensors of R·H·982²
+    # entries, ~2 GB each), 982x5, 60x60
     for i, (label, rows, lq, lk, masked) in enumerate(cases[:3]):
-        rows = 16 if lq == lk == NS else rows
+        rows = M * K_TRAIN * B_DRIVER if lq == lk == NS else rows
         q, k, v, mask = attention_inputs(rows, lq, lk, masked, seed=200 + i, full_row=masked)
         dout = torch.randn_like(q)
         for rate, seed in ((0.0, None), (DROPOUT, 2000 + i)):
@@ -378,10 +405,12 @@ def phase_kernel_vs_plain():
                    + ", ".join(f"{e:.2e}" for e in errs[torch.bfloat16]))
             assert all(np.isfinite(e) and e <= 1e-4 for e in errs[torch.float32]), label
             assert all(np.isfinite(e) and e <= 2e-2 for e in errs[torch.bfloat16]), label
-    # K3/K4: the path's [K·B, 982] rows over [B, 982] data; a row past a
-    # power of two (N = 2000 in a 2048 block); a single row
+    # K3/K4: the paths' [K·B, 982] rows over [B, 982] data (the B = 192
+    # step, the B = 16 drivers); a row past a power of two (N = 2000 in a
+    # 2048 block); a single row
     g = torch.Generator("cuda").manual_seed(300)
-    for rows, n, x_rows in ((K_TRAIN * B_TRAIN, NS, B_TRAIN), (6, 2000, 3), (1, NS, 1)):
+    for rows, n, x_rows in ((K_TRAIN * B_TRAIN, NS, B_TRAIN), (K_TRAIN * B_DRIVER, NS, B_DRIVER),
+                            (6, 2000, 3), (1, NS, 1)):
         loc = torch.randn(rows, n, device="cuda", generator=g)
         x = torch.randn(x_rows, n, device="cuda", generator=g)
         x[0, :5] = loc[0, :5]  # sign(0) = 0
@@ -769,31 +798,191 @@ def phase_train_times(train, seed, sm_clock_mhz):
     del q, k, v, mask, dout, want_out, want_grads
     torch.cuda.empty_cache()
 
-    R, x_rows = K_TRAIN * B_TRAIN, B_TRAIN
-    g = torch.Generator("cuda").manual_seed(9)
-    loc = torch.randn(R, NS, device="cuda", generator=g)
-    x = torch.randn(x_rows, NS, device="cuda", generator=g)
-    lmask = torch.rand(R, NS, device="cuda", generator=g) < 0.2
-    gout = torch.randn(R, device="cuda", generator=g)
-    calls = {
-        "k3": lambda: laplace.masked_laplace_loglik_fwd(loc, x, lmask, BIG_SPECTRA),
-        "k4": lambda: laplace.masked_laplace_loglik_bwd(loc, x, lmask, BIG_SPECTRA, gout),
-        "p3": lambda: laplace.masked_laplace_loglik_reference(loc, x, lmask, BIG_SPECTRA),
-        "p4": lambda: laplace.masked_laplace_grad_reference(loc, x, lmask, BIG_SPECTRA, gout)}
-    host = {key: time_ms(fn, inner=100) for key, fn in calls.items()}
-    res.update({key: device_ms(fn) for key, fn in calls.items()})
-    res["b3"], res["b4"] = laplace_bound(R, NS, x_rows, False), laplace_bound(R, NS, x_rows, True)
-    us = {key: f"{t * 1e3:.2f} us" for key, t in res.items() if key in calls}
-    log(9, f"laplace [{R}, {NS}] over [{x_rows}, {NS}] data, device time per call: K3 "
-           f"{us['k3']} (bound {res['b3'][0] * 1e3:.2f} us, {res['b3'][1]}; plain {us['p3']}); "
-           f"K4 {us['k4']} (bound {res['b4'][0] * 1e3:.2f} us, {res['b4'][1]}; plain "
-           f"{us['p4']}); no single library call computes either")
-    log(9, "laplace wrapper throughput (100 back-to-back calls between CUDA events, set by "
-           "the host): " + ", ".join(f"{key} {t * 1e3:.2f} us" for key, t in host.items()))
+    # K3/K4 at the B = 192 step's [K·B, 982] rows and at the flagship
+    # driver's (B = 16); beside each, one torch.sum over the same fp32 rows,
+    # a library call that reads loc's bytes and does less work than K3
+    for b in (B_TRAIN, B_DRIVER):
+        R, x_rows, suffix = K_TRAIN * b, b, "" if b == B_TRAIN else f"_{K_TRAIN * b}"
+        g = torch.Generator("cuda").manual_seed(9)
+        loc = torch.randn(R, NS, device="cuda", generator=g)
+        x = torch.randn(x_rows, NS, device="cuda", generator=g)
+        lmask = torch.rand(R, NS, device="cuda", generator=g) < 0.2
+        gout = torch.randn(R, device="cuda", generator=g)
+        calls = {
+            "k3": lambda: laplace.masked_laplace_loglik_fwd(loc, x, lmask, BIG_SPECTRA),
+            "k4": lambda: laplace.masked_laplace_loglik_bwd(loc, x, lmask, BIG_SPECTRA, gout),
+            "p3": lambda: laplace.masked_laplace_loglik_reference(loc, x, lmask, BIG_SPECTRA),
+            "p4": lambda: laplace.masked_laplace_grad_reference(loc, x, lmask, BIG_SPECTRA,
+                                                                 gout),
+            "sum": lambda: torch.sum(loc, dim=1)}
+        host = {key: time_ms(fn, inner=100) for key, fn in calls.items()}
+        dev = {key: device_ms(fn) for key, fn in calls.items()}
+        b3, b4 = laplace_bound(R, NS, x_rows, False), laplace_bound(R, NS, x_rows, True)
+        res.update({key + suffix: t for key, t in dev.items()})
+        res["b3" + suffix], res["b4" + suffix] = b3, b4
+        us = {key: f"{t * 1e3:.3f} us" for key, t in dev.items()}
+        log(9, f"laplace [{R}, {NS}] over [{x_rows}, {NS}] data, device time per call: K3 "
+               f"{us['k3']} (bound {b3[0] * 1e3:.3f} us, {b3[1]}; plain {us['p3']}); K4 "
+               f"{us['k4']} (bound {b4[0] * 1e3:.3f} us, {b4[1]}; plain {us['p4']}); "
+               f"torch.sum(loc, dim=1) {us['sum']}; no single library call computes K3 or K4")
+        log(9, f"laplace [{R}, {NS}] wrapper throughput (100 back-to-back calls between CUDA "
+               f"events, set by the host): "
+               + ", ".join(f"{key} {t * 1e3:.2f} us" for key, t in host.items()))
     for precision, (_, _, state, step, batch) in train.items():
         profile_calls(lambda: step(state, batch), f"train step {precision}", n=2, top=12,
                       phase=9)
     return res
+
+
+# -- the training drivers --------------------------------------------------------
+
+def driver_args(seed, root, *extra):
+    return [f"train.seed={seed}", f"train.ckpt_dir={root}",
+            f"train.log_dir={os.path.join(root, 'logs')}", *extra]
+
+
+def flagship_ckpt(root):
+    cfg = PhotoSpectraMMVAEConfig()
+    return os.path.join(root, f"goldstein_photospec_{cfg.model.latent_len}-"
+                              f"{cfg.model.latent_dim}_K{cfg.train.K}_beta{cfg.train.beta}")
+
+
+def _params_rel(a, b):
+    """max |a − b| over the parameters, over max |a|."""
+    diff = max((x - y).abs().max().item() for x, y in zip(a.parameters(), b.parameters()))
+    return diff / max(x.abs().max().item() for x in a.parameters())
+
+
+def phase_drivers(seed):
+    """Phase 10: the training drivers as a user runs them, at the flagship
+    widths, on the synthetic data of --seed. Returns the launches of (a)'s
+    run and (c)'s serving, and the numbers of (e)."""
+    cfg = PhotoSpectraMMVAEConfig()
+    assert cfg.train.batch_size == B_DRIVER and cfg.train.K == K_TRAIN
+    assert cfg.model.dropout == DROPOUT
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    dir_a, dir_b, dir_d = (os.path.join(SMOKE_DIR, s) for s in ("a", "b", "d"))
+    per_step = train_step_prediction(B_DRIVER, DROPOUT)
+    log(10, f"predicted launches per driver step (B = {B_DRIVER}) "
+            f"{dict(zip(COUNTERS, per_step))}")
+
+    # (a) train 3 epochs, saving every epoch; each epoch's launches checked
+    epochs = []
+    mark = {}
+
+    def on_epoch(epoch, state, loss):
+        now, counts = time.perf_counter(), kernel_counts()
+        steps = state.step - mark["step"]
+        got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+        want = tuple(steps * w for w in per_step)
+        log(10, f"(a) epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
+                f"{now - mark['t']:.3f} s (with its checkpoint save), launches "
+                f"{dict(zip(COUNTERS, got))}")
+        assert np.isfinite(loss), (epoch, loss)
+        assert got == want, (epoch, got, want)
+        epochs.append((now - mark["t"], steps))
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+
+    reset_counts()
+    mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+    state_a, losses_a = train_photospectra.main(
+        driver_args(seed, dir_a, f"train.epochs={DRIVER_EPOCHS}", "train.save_every=1"),
+        callback=on_epoch)
+    launches_a = dict(zip(COUNTERS, kernel_counts()))
+    log(10, f"(a) main path (drivers): launches {launches_a}")
+    assert len(losses_a) == DRIVER_EPOCHS and all(v > 0 for v in launches_a.values())
+    rates = [B_DRIVER * steps / t for t, steps in epochs]
+    med_rate = statistics.median(rates[1:])
+    log(10, f"(e) driver samples/s per epoch (host clock, the epoch ending in the loss's "
+            f"float): {', '.join(f'{r:.1f}' for r in rates)}; median of epochs 2-"
+            f"{DRIVER_EPOCHS} {med_rate:.1f} samples/s "
+            f"({B_DRIVER / med_rate * 1e3:.2f} ms per step)")
+
+    # (b) 2 epochs, then resumed to 3: the same run as (a)
+    train_photospectra.main(driver_args(seed, dir_b, "train.epochs=2", "train.save_every=1"))
+    state_b, losses_b = train_photospectra.main(driver_args(
+        seed, dir_b, f"train.epochs={DRIVER_EPOCHS}", "train.resume=true", "train.save_every=1"))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(losses_a, losses_b))
+    param_rel = _params_rel(state_a.model, state_b.model)
+    bitwise = all(torch.equal(x, y) for x, y in zip(state_a.model.parameters(),
+                                                     state_b.model.parameters()))
+    log(10, f"(b) kill-and-resume against (a): losses {losses_b} vs {losses_a}, max relative "
+            f"difference {loss_rel:.3e}; parameters max-abs difference over max |param| "
+            f"{param_rel:.3e} (bitwise equal: {bitwise}); step {state_b.step} vs {state_a.step}")
+    assert state_b.step == state_a.step and len(losses_b) == DRIVER_EPOCHS
+    assert loss_rel <= 1e-6 and param_rel <= 1e-6, (loss_rel, param_rel)
+
+    # (c) serve (a)'s checkpoint: bitwise the server over (a)'s model
+    data = resolve_dataset(None, "goldstein", seed=seed)
+    idx = np.asarray(data["testing_idx"])[:N_HELD_OUT]
+    photo, spec = (tuple(t.numpy() for t in m)
+                   for m in multimodal_tuple(data, idx=idx, device="cpu"))
+    want = encoder_launches(0, N_HELD_OUT) + decoder_launches(1, K_SERVE * N_HELD_OUT)
+    outs = []
+    reset_counts()
+    for label, make in (("from_checkpoint", lambda: InferenceServer.from_checkpoint(
+                             flagship_ckpt(dir_a), buckets=BUCKETS, seed=seed)),
+                        ("in-memory model", lambda: InferenceServer(
+                            state_a.model, buckets=BUCKETS, seed=seed))):
+        server = make()
+        before = attention.launches
+        outs.append(server.crossmodal_ci(photo, spec, K=K_SERVE, alpha=0.1))
+        torch.cuda.synchronize()
+        got = attention.launches - before
+        log(10, f"(c) {label}: crossmodal_ci 0->1 K={K_SERVE} on {N_HELD_OUT} held-out events, "
+                f"K1 launches {got} (predicted {want})")
+        assert got == want, (label, got, want)
+    for t in outs[0]:
+        assert t.shape == (N_HELD_OUT, NS) and torch.isfinite(t).all()
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    log(10, f"(c) from_checkpoint against the in-memory model: bitwise equal {same}")
+    assert same
+    serve_launches = attention.launches
+
+    # (d) the other drivers, one epoch each (ZTF at repeat_factor 1, a cut
+    # from the drivers' 10 to keep the smoke short)
+    log(10, "(d) cut: the ZTF drivers run at repeat_factor=1 (their default is 10)")
+    for name, driver, extra in (("train_spectra", train_spectra, ()),
+                                ("train_photometry", train_photometry, ()),
+                                ("train_ztf_photospect", train_ztf_photospect,
+                                 ("repeat_factor=1",)),
+                                ("train_ztf_spectra", train_ztf_spectra, ("repeat_factor=1",))):
+        t0 = time.perf_counter()
+        state, losses = driver.main(driver_args(seed, dir_d, "train.epochs=1", *extra))
+        torch.cuda.synchronize()
+        log(10, f"(d) {name}: 1 epoch, {state.step} steps, loss {losses[0]:.6f}, "
+                f"{time.perf_counter() - t0:.2f} s with its set-up")
+        assert len(losses) == 1 and np.isfinite(losses).all(), (name, losses)
+
+    # (e) the device's busy share of one epoch of the driver itself: a copy
+    # of (a)'s checkpoint resumed for two more epochs, the profiler running
+    # from the end of the first to the end of the second (the same window
+    # as (a)'s samples/s: augmentation, the steps, the checkpoint save)
+    from torch.profiler import ProfilerActivity, profile
+
+    dir_e = os.path.join(SMOKE_DIR, "e")
+    shutil.copytree(flagship_ckpt(dir_a), flagship_ckpt(dir_e))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+    window = {}
+
+    def on_profiled_epoch(epoch, state, loss):
+        torch.cuda.synchronize()
+        if epoch == DRIVER_EPOCHS:
+            prof.start()
+            window.update(t=time.perf_counter(), step=state.step)
+        else:
+            window.update(wall_us=(time.perf_counter() - window["t"]) * 1e6,
+                          steps=state.step - window["step"])
+            prof.stop()
+
+    train_photospectra.main(driver_args(seed, dir_e, f"train.epochs={DRIVER_EPOCHS + 2}",
+                                        "train.resume=true", "train.save_every=1"),
+                            callback=on_profiled_epoch)
+    busy = report_profile(prof, window["wall_us"], 1,
+                          f"epoch {DRIVER_EPOCHS + 2} of train_photospectra.main "
+                          f"({window['steps']} steps, resumed from (a)'s checkpoint)",
+                          top=10, phase=10)
+    return launches_a, serve_launches, med_rate, busy
 
 
 def _device_us(event):
@@ -825,6 +1014,12 @@ def profile_calls(call, label, n=3, top=8, phase=6):
             call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return report_profile(prof, wall_us, n, label, top, phase)
+
+
+def report_profile(prof, wall_us, n, label, top, phase):
+    """Log the device time by kernel of a finished profile over ``n`` calls
+    in ``wall_us``; returns the device's busy share of that wall."""
     events = [e for e in prof.key_averages() if _is_kernel(e) and _device_us(e) > 0]
     busy_us = sum(_device_us(e) for e in events)
     log(phase, f"profile {label}: {n} calls, wall {wall_us / n / 1e3:.2f} ms/call under the "
@@ -832,6 +1027,7 @@ def profile_calls(call, label, n=3, top=8, phase=6):
     for e in sorted(events, key=_device_us, reverse=True)[:top]:
         log(phase, f"  {_device_us(e) / n / 1e3:8.3f} ms/call {e.count / n:6.1f} launches/call "
                    f"{e.key[:100]}")
+    return busy_us / wall_us
 
 
 def device_ms(call, n=100):
@@ -871,33 +1067,52 @@ def main(argv=None):
     train_launches, train = phase_training(args.seed)
     phase_train_card_vs_cpu(args.seed)
     t = phase_train_times(train, args.seed, sm_clock)
+    del train
+    torch.cuda.empty_cache()
+    drivers, drivers_serving, rate, busy = phase_drivers(args.seed)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(10, f"flagship driver (B = {B_DRIVER}, K = {K_TRAIN}, dropout {DROPOUT}, fp32): median "
+            f"{rate:.1f} samples/s over epochs 2-{DRIVER_EPOCHS}; device busy {busy:.1%} of a "
+            f"profiled epoch; on {smi}")
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], t["err_f"])
     errs["attention_bwd"] = max(errs["attention_bwd"], t["err_b"])
     attn_src, lap_src = "vaesne_tpu_torch/csrc/attention_{}.cu", "vaesne_tpu_torch/ops/laplace.py"
+    r32 = f"_{K_TRAIN * B_DRIVER}"
     rows = [
         ("attention_fwd", "cuda", attn_src.format("fwd"), "vaesne_tpu/ops/attention.py:304",
-         serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib, ms16, lib16),
+         serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib, ms16, lib16,
+         drivers_serving),
         ("attention_fwd_dropout", "cuda", attn_src.format("fwd"),
          "vaesne_tpu/ops/attention.py:304", train_launches["K1 rate>0"],
          errs["attention_fwd_dropout"], f32["fwd"], t["plain_f"], f32["b_f"], f32["lib_f"],
-         b16["fwd"], b16["lib_f"]),
+         b16["fwd"], b16["lib_f"], drivers["K1 rate>0"]),
         ("attention_bwd", "cuda", attn_src.format("bwd"), "vaesne_tpu/ops/attention.py:353",
          train_launches["K2"], errs["attention_bwd"], f32["bwd"], t["plain_b"], f32["b_b"],
-         f32["lib_b"], b16["bwd"], b16["lib_b"]),
+         f32["lib_b"], b16["bwd"], b16["lib_b"], drivers["K2"]),
         ("laplace_fwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:30",
-         train_launches["K3"], errs["laplace_fwd"], t["k3"], t["p3"], t["b3"], None, None, None),
+         train_launches["K3"], errs["laplace_fwd"], t["k3"], t["p3"], t["b3"], None, None, None,
+         drivers["K3"]),
         ("laplace_bwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:38",
-         train_launches["K4"], errs["laplace_bwd"], t["k4"], t["p4"], t["b4"], None, None, None),
+         train_launches["K4"], errs["laplace_bwd"], t["k4"], t["p4"], t["b4"], None, None, None,
+         drivers["K4"]),
     ]
     # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
-    # inputs (null for the fp32-only Laplace kernels)
+    # inputs (null for the fp32-only Laplace kernels); launches_drivers counts
+    # phase 10's path (K1 at rate 0: the from_checkpoint serving); the Laplace
+    # rows add their time at the drivers' [32, 982] and torch.sum's at both
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
+    laplace_at_32 = {
+        name: {f"ms{r32}": t[f"k{n}{r32}"], f"bound_ms{r32}": t[f"b{n}{r32}"][0],
+               "torch_sum_ms": t["sum"], f"torch_sum_ms{r32}": t[f"sum{r32}"]}
+        for name, n in (("laplace_fwd", 3), ("laplace_bwd", 4))}
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
-             ms_bf16=r[10], library_ms_bf16=r[11])
+             ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
+             **laplace_at_32.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -317,3 +317,26 @@ def test_flagship_train_step_on_the_card(cuda, precision):
         assert tuple(b - a for a, b in zip(counts, now)) == (8, 4, 2, 2)
     assert np.isfinite(losses).all() and losses[0] != losses[1]
     assert next(model.parameters()).is_cuda and state.step == 2
+
+
+def test_train_step_gradients_repeat_bitwise(cuda):
+    """Two backward passes of the flagship objective on one batch give the
+    same bits in every gradient, the light-curve decoder's band embedding
+    (64 × 60 indices, past the 3072 where nn.Embedding's backward adds
+    rows in a varying order) included: what a bitwise resume rests on."""
+    kw = dict(latent_len=4, latent_dim=4, model_dim=32, ff_dim=32, num_layers=2, num_heads=4)
+    model = init_params(PhotoSpecMMVAE([PhotometricVAE(num_bands=6, **kw), SpectraVAE(**kw)]),
+                        torch.Generator().manual_seed(0)).to(cuda).train()
+    rng = np.random.default_rng(0)
+    photo = (torch.randn(16, 60), torch.rand(16, 60),
+             torch.from_numpy(rng.integers(0, 6, (16, 60))), torch.rand(16, 60) < 0.2)
+    spec = (torch.randn(16, 982), torch.linspace(-1, 1, 982).repeat(16, 1), torch.randn(16),
+            torch.rand(16, 982) < 0.2)
+    batch = tuple(tuple(t.to(cuda) for t in m) for m in (photo, spec))
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        (-objectives.m_iwae(model, batch, 2, seed=7)).backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+    assert not differ, differ

@@ -186,3 +186,19 @@ def test_remat_keeps_outputs_and_gradients():
     torch.testing.assert_close(results[0][0], results[1][0])
     for a, b in zip(results[0][1], results[1][1]):
         torch.testing.assert_close(a, b)
+
+
+def test_embed_matches_nn_embedding_and_its_gradient():
+    """``embed`` looks rows up as nn.Embedding does; its weight gradient (a
+    one-hot product, the same bits in every run on the card) equals
+    nn.Embedding's, here past the 3072 indices where that changes path."""
+    from vaesne_tpu_torch.nn.layers import embed
+
+    table = torch.nn.Embedding(6, 16)
+    idx = torch.from_numpy(np.random.default_rng(0).integers(0, 6, (64, 60)))
+    grad = torch.randn(64, 60, 16, generator=torch.Generator().manual_seed(1))
+    out = embed(table, idx)
+    torch.testing.assert_close(out, table(idx), rtol=0, atol=0)
+    (got,) = torch.autograd.grad(out, table.weight, grad)
+    (want,) = torch.autograd.grad(table(idx), table.weight, grad)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

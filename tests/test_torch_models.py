@@ -132,6 +132,18 @@ def test_flagship_width_matches(fixed_noise):
     _check_forward(*_pair(FLAGSHIP, batch), batch, K=2, rtol=1e-4, atol=1e-6)
 
 
+def test_bright_variants_match(fixed_noise):
+    """BrightPhotometricVAE and BrightSpectraVAE: the decoded mean
+    recentred to a brightness head read from latent token 0 (and the phase
+    for spectra); the head's parameters bridge as ``brightnessfc``."""
+    batch = _batch(seed=11)
+    jm, variables, tm = _pair(SMALL, batch, bright=True)
+    assert all(hasattr(v, "brightnessfc") for v in tm.vaes)
+    _check_forward(jm, variables, tm, batch, K=2)
+    with pytest.raises(ValueError, match="brightness"):
+        tmodels.BrightSpectraVAE(latent_len=1)
+
+
 def test_scalings_and_tile_leading_match(small):
     jm, _, tm, _ = small
     assert tm.llik_scalings == pytest.approx(jm.llik_scalings)

@@ -61,13 +61,16 @@ def tx(batch):
                        for a in m) for m in batch)
 
 
-def make_pair(kw, batch):
+def make_pair(kw, batch, bright=False):
     """(JAX PhotoSpecMMVAE, its flax params, the port's twin in eval mode)
-    with the same weights, from a seeded port initialisation."""
-    jm = jmodels.PhotoSpecMMVAE(vaes=[jmodels.PhotometricVAE(num_bands=6, **kw),
-                                      jmodels.SpectraVAE(**kw)], beta=1.0)
-    tm = tmodels.PhotoSpecMMVAE([tmodels.PhotometricVAE(num_bands=6, **kw),
-                                 tmodels.SpectraVAE(**kw)], beta=1.0)
+    with the same weights, from a seeded port initialisation; ``bright``
+    takes the Bright* sub-VAEs."""
+    prefix = "Bright" if bright else ""
+    jm = jmodels.PhotoSpecMMVAE(
+        vaes=[getattr(jmodels, prefix + "PhotometricVAE")(num_bands=6, **kw),
+              getattr(jmodels, prefix + "SpectraVAE")(**kw)], beta=1.0)
+    tm = tmodels.PhotoSpecMMVAE([getattr(tmodels, prefix + "PhotometricVAE")(num_bands=6, **kw),
+                                 getattr(tmodels, prefix + "SpectraVAE")(**kw)], beta=1.0)
     init_params(tm, torch.Generator().manual_seed(0))
     return jm, jax_params_from(tm, jm, jx(batch)), tm.eval()
 

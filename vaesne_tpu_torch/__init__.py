@@ -4,8 +4,10 @@ A second package beside the JAX reference ``vaesne_tpu``: the serving and
 training paths of the photometry + spectra MoE-MMVAE in PyTorch, with the
 JAX package's TPU kernels on those paths written by hand for Hopper (fused
 masked attention forward and backward in CUDA C++, the masked Laplace
-log-likelihood forward and backward in Triton). Imports torch, numpy and
-the standard library only (and Triton, at the first launch on a card).
+log-likelihood forward and backward in Triton), and the data layer, configs,
+checkpoints and training drivers (``data``, ``utils.config``,
+``utils.checkpoint``, ``experiments``). Imports torch, numpy and the
+standard library only (and Triton, at the first launch on a card).
 """
 
 from . import objectives, training

@@ -1,0 +1,46 @@
+"""Data of the port: npz loaders into tensors on a device, augmentation on
+the device, the synthetic Goldstein/ZTF generators and the npz validator
+(the image helpers wait for the image slice)."""
+
+from .augment import augment_multimodal, augment_photometry, augment_spectra, repeat_dataset
+from .goldstein import (
+    denormalize,
+    get_goldstein_params,
+    goldstein_labels,
+    load_npz,
+    multimodal_tuple,
+    photometry_tuple,
+    spectra_tuple,
+    train_test_split,
+)
+from .synthetic import (
+    LSST_BANDS,
+    PHOTOMETRY_LENGTH,
+    SPECTRUM_BINS,
+    ZTF_BANDS,
+    make_goldstein_like,
+    make_ztf_like,
+)
+from .validate import validate_npz
+
+__all__ = [
+    "augment_multimodal",
+    "augment_photometry",
+    "augment_spectra",
+    "repeat_dataset",
+    "denormalize",
+    "get_goldstein_params",
+    "goldstein_labels",
+    "load_npz",
+    "multimodal_tuple",
+    "photometry_tuple",
+    "spectra_tuple",
+    "train_test_split",
+    "validate_npz",
+    "make_goldstein_like",
+    "make_ztf_like",
+    "LSST_BANDS",
+    "PHOTOMETRY_LENGTH",
+    "SPECTRUM_BINS",
+    "ZTF_BANDS",
+]

@@ -185,8 +185,9 @@ def kl_divergence(d1: Distribution, d2: Distribution,
                   generator: Optional[torch.Generator] = None,
                   K: int = 100) -> torch.Tensor:
     """Closed-form KL for Laplace‖Laplace and Normal‖Normal, else a Monte
-    Carlo estimate over K draws of d1 (which needs ``generator`` or the
-    global generator)."""
+    Carlo estimate over K draws of d1 from ``generator``; without one it
+    raises, as the JAX package does without a key (it never draws from
+    torch's global generator)."""
     if isinstance(d1, Laplace) and isinstance(d2, Laplace):
         delta = torch.abs(d1.loc - d2.loc)
         b1, b2 = d1.scale, d2.scale
@@ -194,5 +195,7 @@ def kl_divergence(d1: Distribution, d2: Distribution,
     if isinstance(d1, Normal) and isinstance(d2, Normal):
         v1, v2 = d1.scale**2, d2.scale**2
         return 0.5 * (v1 / v2 + (d2.loc - d1.loc) ** 2 / v2 - 1.0 + torch.log(v2 / v1))
+    if generator is None:
+        raise ValueError("No closed-form KL for this pair; pass a generator for MC.")
     samples = d1.sample(generator, (K,))
     return (d1.log_prob(samples) - d2.log_prob(samples)).mean(0)

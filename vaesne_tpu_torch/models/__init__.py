@@ -2,8 +2,8 @@
 
 from .base_vae import BaseVAE, tile_leading
 from .mmvae import MMVAE, PhotoSpecMMVAE
-from .photometric import PhotometricVAE
-from .spectra import SpectraVAE
+from .photometric import BrightPhotometricVAE, PhotometricVAE
+from .spectra import BrightSpectraVAE, SpectraVAE
 
-__all__ = ["BaseVAE", "MMVAE", "PhotoSpecMMVAE", "PhotometricVAE", "SpectraVAE",
-           "tile_leading"]
+__all__ = ["BaseVAE", "BrightPhotometricVAE", "BrightSpectraVAE", "MMVAE", "PhotoSpecMMVAE",
+           "PhotometricVAE", "SpectraVAE", "tile_leading"]

@@ -3,7 +3,7 @@
 Batch contract: ``(flux [B, L] f32, time [B, L] f32, band [B, L] int,
 mask [B, L] bool)``, True = missing. Masked points enter the likelihood with
 scale 1 + 1e8·mask. Counterpart of ``vaesne_tpu/models/photometric.py``
-(``PhotometricVAE``; the Bright variant comes later).
+(``PhotometricVAE`` and ``BrightPhotometricVAE``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..nn.layers import MLP
 from ..nn.photometric_layers import PhotometricTransformerDecoder, PhotometricTransformerEncoder
 from .base_vae import BaseVAE, tile_leading
 
@@ -31,6 +32,7 @@ class PhotometricVAE(BaseVAE):
         self.num_bands = num_bands
         self.latent_len = latent_len
         self.latent_dim = latent_dim
+        self.model_dim = model_dim
         self.beta = beta
         self.llik_scaling = llik_scaling
         self.scale_eps = scale_eps
@@ -57,4 +59,24 @@ class PhotometricVAE(BaseVAE):
         _, time, band, mask = x
         time_t, band_t, mask_t = (tile_leading(a, K) for a in (time, band, mask))
         loc = self.dec(time_t, band_t, z_flat, mask_t, seed=seed)
+        return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)
+
+
+class BrightPhotometricVAE(PhotometricVAE):
+    """PhotometricVAE whose decoded mean is recentred to a brightness read
+    from latent token 0: loc ← loc + brightnessfc(z₀) − mean over the grid
+    of loc."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.latent_len <= 1:
+            raise ValueError("first latent token is reserved for overall brightness")
+        self.brightnessfc = MLP(self.latent_dim, 1, (self.model_dim,))
+
+    def _dec_dist(self, z_flat, x, K: int, seed: Optional[int] = None):
+        _, time, band, mask = x
+        time_t, band_t, mask_t = (tile_leading(a, K) for a in (time, band, mask))
+        brightness = self.brightnessfc(z_flat[:, 0, :])  # [K·B, 1]
+        loc = self.dec(time_t, band_t, z_flat, mask_t, seed=seed)
+        loc = loc + brightness - loc.mean(dim=-1, keepdim=True)
         return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)

@@ -3,8 +3,7 @@
 Batch contract: ``(flux [B, N] f32, wavelength [B, N] f32, phase [B] f32,
 mask [B, N] bool)``, True = missing; N = 982 for Goldstein. Masked points
 get likelihood scale 1 + 1e10·mask. Counterpart of
-``vaesne_tpu/models/spectra.py`` (``SpectraVAE``; the Bright variant comes
-later).
+``vaesne_tpu/models/spectra.py`` (``SpectraVAE`` and ``BrightSpectraVAE``).
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..nn.layers import MLP
 from ..nn.spectra_layers import SpectraTransformerDecoder, SpectraTransformerEncoder
 from .base_vae import BaseVAE, tile_leading
 
@@ -30,6 +30,7 @@ class SpectraVAE(BaseVAE):
         super().__init__()
         self.latent_len = latent_len
         self.latent_dim = latent_dim
+        self.model_dim = model_dim
         self.beta = beta
         self.llik_scaling = llik_scaling
         self.scale_eps = scale_eps
@@ -55,4 +56,24 @@ class SpectraVAE(BaseVAE):
         _, wavelength, phase, mask = x
         wl_t, phase_t, mask_t = (tile_leading(a, K) for a in (wavelength, phase, mask))
         loc = self.dec(wl_t, phase_t, z_flat, mask_t, seed=seed)
+        return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)
+
+
+class BrightSpectraVAE(SpectraVAE):
+    """SpectraVAE whose decoded mean is recentred to a brightness read from
+    (latent token 0, phase): loc ← loc + brightnessfc([z₀, phase]) − mean
+    over the grid of loc."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.latent_len <= 1:
+            raise ValueError("need at least one token for overall brightness")
+        self.brightnessfc = MLP(self.latent_dim + 1, 1, (self.model_dim,))
+
+    def _dec_dist(self, z_flat, x, K: int, seed: Optional[int] = None):
+        _, wavelength, phase, mask = x
+        wl_t, phase_t, mask_t = (tile_leading(a, K) for a in (wavelength, phase, mask))
+        brightness = self.brightnessfc(torch.cat([z_flat[:, 0, :], phase_t[:, None]], dim=-1))
+        loc = self.dec(wl_t, phase_t, z_flat, mask_t, seed=seed)
+        loc = loc + brightness - loc.mean(dim=-1, keepdim=True)
         return self._masked_likelihood(loc, mask_t, MASK_VARIANCE)

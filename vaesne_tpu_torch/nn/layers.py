@@ -67,6 +67,31 @@ class MLP(nn.Module):
         return self.out(x)
 
 
+class _Embed(torch.autograd.Function):
+    """Row lookup whose weight gradient is a one-hot matrix product. On the
+    card ``nn.Embedding``'s backward adds the rows of more than 3072 indices
+    in an order that varies from run to run, so two runs of one training
+    step would differ in the last bits; the product adds them in a fixed
+    order."""
+
+    @staticmethod
+    def forward(ctx, weight: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = weight.shape[0]
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        onehot = F.one_hot(idx.reshape(-1), ctx.rows).to(grad.dtype)
+        return onehot.t() @ grad.reshape(-1, grad.shape[-1]), None
+
+
+def embed(table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+    """``table(idx)``, with a gradient that is the same bits in every run."""
+    return _Embed.apply(table.weight, idx)
+
+
 def _div_term(dim: int, step: int, device) -> torch.Tensor:
     """exp(arange(0, dim, step) · (−log(10000)/dim))."""
     return torch.exp(torch.arange(0, dim, step, dtype=torch.float32, device=device)

@@ -13,7 +13,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import MLP, SingleLayerMLP, SinusoidalEmbedding, SinusoidalMLPEmbedding, TransformerStack
+from .layers import (
+    MLP,
+    SingleLayerMLP,
+    SinusoidalEmbedding,
+    SinusoidalMLPEmbedding,
+    TransformerStack,
+    embed,
+)
 
 
 class PhotometricTransformerEncoder(nn.Module):
@@ -43,7 +50,7 @@ class PhotometricTransformerEncoder(nn.Module):
     def forward(self, flux: torch.Tensor, time: torch.Tensor, band: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 seed: Optional[int] = None) -> torch.Tensor:
-        band_embd = self.bandembd(band)
+        band_embd = embed(self.bandembd, band)
         flux_embd = self.fluxfc(flux[..., None])
         time_embd = self.time_embd(time)
         if self.concat:
@@ -78,7 +85,7 @@ class PhotometricTransformerDecoder(nn.Module):
                 seed: Optional[int] = None) -> torch.Tensor:
         if self.donotmask:
             mask = None
-        x = self.sinusoidal_time_embd(time) + self.bandembd(band)
+        x = self.sinusoidal_time_embd(time) + embed(self.bandembd, band)
         context = self.contextfc(bottleneck)
         h = self.blocks(x, context=context, mask=mask, context_mask=None, seed=seed)
         return self.get_photo(x + h)[..., 0]

@@ -9,6 +9,7 @@ per (task, static configuration, bucket); ``stats()`` counts the first run
 of each such program as a compile and every later one as a hit.
 
     server = InferenceServer(model)                        # on "cuda"
+    server = InferenceServer.from_checkpoint(ckpt_dir)     # a driver's checkpoint
     spec = server.crossmodal(photo_batch, spec_grids)      # LC → spectrum
     mean, lo, hi = server.crossmodal_ci(photo, grids, K=100)
     z = server.embed(photo_batch, modality=0)
@@ -29,6 +30,17 @@ import numpy as np
 import torch
 
 DEFAULT_BUCKETS = (8, 32, 128, 512)
+
+# checkpoint ``_config_class`` tag → the driver whose build_model rebuilds
+# its architecture; crossmodal and reconstruct need an MMVAE, embed serves
+# any of them
+_RESTORE_DISPATCH = {
+    "PhotoSpectraMMVAEConfig": "train_photospectra",
+    "ZTFMMVAEConfig": "train_ztf_photospect",
+    "SpectraVAEConfig": "train_spectra",
+    "ZTFSpectraConfig": "train_ztf_spectra",
+    "PhotometryVAEConfig": "train_photometry",
+}
 
 
 def _pad_to(batch, size: int):
@@ -95,6 +107,28 @@ class InferenceServer:
         self._lock = threading.Lock()
         self.hits = 0
         self.compiles = 0
+
+    @classmethod
+    def from_checkpoint(cls, path: str, **kwargs) -> "InferenceServer":
+        """Serve a checkpoint directory written by a training driver: its
+        ``config.json``'s ``_config_class`` tag (the flagship's class where
+        there is none) picks the driver whose ``build_model`` rebuilds the
+        exact architecture, and the trained parameters are loaded into it.
+        ``kwargs`` go to the constructor (``device``, ``buckets``, ...)."""
+        import importlib
+
+        from .utils.checkpoint import load_config, restore_config, restore_params
+        from .utils.config import CONFIG_CLASSES
+
+        name = (load_config(path) or {}).get("_config_class", "PhotoSpectraMMVAEConfig")
+        if name not in _RESTORE_DISPATCH:
+            raise ValueError(
+                f"checkpoint at {path} was trained as {name}, which has no serving "
+                f"dispatch entry; servable: {sorted(_RESTORE_DISPATCH)}")
+        cfg = restore_config(path, CONFIG_CLASSES[name]) or CONFIG_CLASSES[name]()
+        driver = importlib.import_module(f".experiments.{_RESTORE_DISPATCH[name]}",
+                                         __package__)
+        return cls(restore_params(path, driver.build_model(cfg)), **kwargs)
 
     @property
     def device(self) -> torch.device:

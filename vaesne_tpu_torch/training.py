@@ -5,16 +5,16 @@ Counterparts of ``vaesne_tpu/training.py``: ``adamw`` (AdamW with torch's
 weight decay 1e-2 and a global-norm clip, as the JAX package chains
 ``optax.clip_by_global_norm`` before ``optax.adamw``), ``TrainState``,
 ``make_train_step``, ``accumulate_gradients``, ``epoch_batches``,
-``train_epoch`` and ``fit``. Objectives are maximised, so the step minimises
-``-loss_fn`` and reports that, as the JAX package does.
+``train_epoch``, ``make_scan_epoch`` and ``fit``. Objectives are maximised,
+so the step minimises ``-loss_fn`` and reports that, as the JAX package
+does.
 
 A loss function is ``loss_fn(model, batch, seed) -> objective``, the
 counterpart of the JAX ``loss_fn(model, variables, batch, key)``: the model
 holds its parameters, and ``seed`` is an integer drawn per step from the
 state's CPU generator (``utils.rng``). The entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``, and raise when no card is
-present. The step runs eagerly: a CUDA graph of the step is later work, as
-is ``make_scan_epoch``.
+present. The step runs eagerly: a CUDA graph of the step is later work.
 """
 
 from __future__ import annotations
@@ -93,6 +93,27 @@ class TrainState:
         model = model.to(resolve_device(device)).train()
         return cls(model, optimizer.init(model.parameters()), 0,
                    torch.Generator().manual_seed(seed))
+
+    def state_dict(self) -> dict:
+        """The model's parameters, the AdamW moments, the step and the
+        generator's state: everything a resumed run continues from. The
+        tensors are the live ones; ``torch.save`` copies them."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.step, "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()`` output. The optimizer keeps its own
+        hyperparameters (learning rate, betas, weight decay), as the JAX
+        package's optimizer state holds none: a resumed run trains with the
+        configuration it is given."""
+        self.model.load_state_dict(state["model"])
+        hyper = [{k: v for k, v in g.items() if k != "params"}
+                 for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(state["optimizer"])
+        for group, h in zip(self.optimizer.param_groups, hyper):
+            group.update(h)
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
 
 
 def _tree_map(fn, tree):
@@ -189,16 +210,24 @@ def epoch_batches(generator: torch.Generator, data, batch_size: int,
                   shuffle: bool = True) -> Iterator[Any]:
     """Minibatches of ``data`` (a nested tuple of arrays or tensors with one
     leading sample axis) in an order drawn from ``generator``; the trailing
-    remainder is dropped so every step has one shape."""
+    remainder is dropped so every step has one shape. The order goes to the
+    data's device once per epoch, and each step gathers its batch there."""
     n = _leaves(data)[0].shape[0]
     steps = n // batch_size
     if steps == 0:
         raise ValueError(f"batch_size {batch_size} exceeds dataset size {n}")
     perm = torch.randperm(n, generator=generator) if shuffle else torch.arange(n)
+    perm = perm[:steps * batch_size].view(steps, batch_size)
+    placed = {}
+
+    def order(a):
+        where = "numpy" if isinstance(a, np.ndarray) else a.device
+        if where not in placed:
+            placed[where] = perm.numpy() if where == "numpy" else perm.to(where)
+        return placed[where]
+
     for i in range(steps):
-        idx = perm[i * batch_size:(i + 1) * batch_size]
-        yield _tree_map(lambda a: a[idx.numpy()] if isinstance(a, np.ndarray)
-                        else a[idx.to(a.device)], data)
+        yield _tree_map(lambda a: a[order(a)[i]], data)
 
 
 def train_epoch(state: TrainState, step_fn, data, batch_size: int,
@@ -212,6 +241,22 @@ def train_epoch(state: TrainState, step_fn, data, batch_size: int,
     if not losses:
         return state, 0.0
     return state, float(torch.stack(losses).mean())
+
+
+def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
+                    accum_steps: int = 1, accum_reduction: str = "mean", device=None):
+    """The whole-epoch train function ``run(state, data, generator,
+    batch_size) -> (state, mean loss)``, the counterpart of the JAX
+    package's ``make_scan_epoch``: ``train_epoch`` over ``make_train_step``.
+    The steps run eagerly and the host syncs once, for the mean loss; a
+    CUDA graph of the step is later work."""
+    step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device)
+
+    def run(state: TrainState, data, generator: torch.Generator,
+            batch_size: int) -> Tuple[TrainState, float]:
+        return train_epoch(state, step, data, batch_size, generator)
+
+    return run
 
 
 def fit(state: TrainState, step_fn, data, batch_size: int, epochs: int,
