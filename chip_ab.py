@@ -7,6 +7,16 @@ imports that checkout's ``vaesne_tpu_torch`` and ``chip_smoke`` (whose
 helpers it uses, so a checkout needs both), building its kernels there.
 A turn measures, on the flagship shapes of ``chip_smoke.py``:
 
+  * K3 (``masked_laplace_loglik_fwd``) and K4 (``masked_laplace_loglik_bwd``)
+    through the flat form [K·B, 982] over [B, 982] data, which every
+    checkout has, at the step's K = 2, B = 192, the drivers' B = 16 and the
+    ZTF driver's K = 8, B = 32, loc in fp32 and bf16 (a checkout that reads
+    fp32 only pays its cast inside the call): device time per call under
+    torch.profiler and the wrapper's host time per call;
+  * one ``MaskedGridLaplace.grid_loglik`` forward, and forward + backward
+    into the whole stack, on expert 0's [K, B, 982] slice of a stacked
+    [2·K, B, 982] decode as ``MMVAE.forward`` hands it over: device time and
+    kernels per call;
   * K1 (``fused_attention_fwd``, with its statistics) and K2
     (``fused_attention_bwd``) at R = 768 rows of 982x982, 20% of keys
     masked, at rate 0 and 0.1, fp32 and bf16, medians of 10 with CUDA
@@ -49,6 +59,7 @@ def worker():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
+    laplace_turn(cs, out)
     rows, heads, rate, dseed = 768, cs.HEADS, cs.DROPOUT, 5
     q, k, v, mask = cs.attention_inputs(rows, cs.NS, cs.NS, True, seed=8, full_row=True)
     dout = torch.randn_like(q)
@@ -114,6 +125,61 @@ def worker():
         out[f"crossmodal_ci_ms_{precision}"] = statistics.median(lat) * 1e3
     print(json.dumps(out), flush=True)
     return 0
+
+
+def laplace_turn(cs, out):
+    """The K3/K4 and grid_loglik entries of a turn (see the module
+    docstring), into ``out``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import vaesne_tpu_torch.ops.laplace as laplace
+    from vaesne_tpu_torch.distributions import MaskedGridLaplace
+
+    def device(call, n=100):
+        """(device us per call, kernels per call) under torch.profiler: each
+        kernel's mean time times its launches per call, rounded (the
+        profiler may drop a few of the first events). Written out here
+        because an older checkout's chip_smoke has no such helper."""
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if cs._is_kernel(e) and e.count > 0]
+        per_call = [max(1, round(e.count / n)) for e in events]
+        return (sum(cs._device_us(e) / e.count * c for e, c in zip(events, per_call)),
+                sum(per_call))
+
+    big, n_pts = cs.BIG_SPECTRA, cs.NS
+    for k, b in ((2, cs.B_TRAIN), (2, cs.B_DRIVER), (8, 32)):
+        g = torch.Generator("cuda").manual_seed(9)
+        stack = torch.randn(b, 2 * k, n_pts, device="cuda", generator=g)
+        mask_stack = torch.rand(b, 2 * k, n_pts, device="cuda", generator=g) < 0.2
+        x = torch.randn(b, n_pts, device="cuda", generator=g)
+        gout = torch.randn(k, b, device="cuda", generator=g)
+        flat_mask = mask_stack[:, :k].reshape(b * k, n_pts)
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{k}x{b}_{str(dtype)[6:]}"
+            flat_loc = stack[:, :k].reshape(b * k, n_pts).to(dtype)
+            g_flat = gout.T.reshape(-1)
+            calls = {"k3": lambda: laplace.masked_laplace_loglik_fwd(flat_loc, x, flat_mask, big),
+                     "k4": lambda: laplace.masked_laplace_loglik_bwd(flat_loc, x, flat_mask, big,
+                                                                     g_flat)}
+            for key, fn in calls.items():
+                out[f"{key}_us_{tag}"] = device(fn)[0]
+                out[f"{key}_host_us_{tag}"] = cs.time_ms(fn, inner=100) * 1e3
+            leaf = stack.to(dtype).transpose(0, 1).detach().requires_grad_()
+            d = MaskedGridLaplace(leaf[:k], mask_stack.transpose(0, 1)[:k], big)
+
+            def fwd_bwd():
+                leaf.grad = None
+                d.grid_loglik(x).backward(gout)
+
+            (out[f"grid_fwd_us_{tag}"], out[f"grid_fwd_kernels_{tag}"]) = device(
+                lambda: d.grid_loglik(x))
+            (out[f"grid_fwd_bwd_us_{tag}"], out[f"grid_fwd_bwd_kernels_{tag}"]) = device(fwd_bwd)
 
 
 def main(argv=None):

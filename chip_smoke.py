@@ -4,17 +4,18 @@ and check them.
     python3 chip_smoke.py [--seed 0]
 
 Run from the repository root on a machine with an NVIDIA H100 (Hopper,
-sm_90a), nvcc and Triton. Phases, each printing its own lines:
+sm_90a) and nvcc. Phases, each printing its own lines:
 
-  1. environment: torch/CUDA/Triton versions, the card's name and power
-     limit, TF32 off for matmuls and cuDNN;
-  2. build: every CUDA kernel under vaesne_tpu_torch/csrc/ with nvcc (the
-     Triton kernels compile at their first launch, in phase 3);
+  1. environment: torch/CUDA versions, the card's name and power limit,
+     TF32 off for matmuls and cuDNN;
+  2. build: every CUDA kernel under vaesne_tpu_torch/csrc/ with nvcc, one
+     process per source in parallel, and any register spill;
   3. each kernel against its plain PyTorch version on the card at the
      shapes the paths give it (serving, the B = 192 step, the B = 16
      drivers of phase 10): K1 attention forward at rate 0 and 0.1,
      its measured keep rate, K2 attention backward against autograd
-     through the plain version, K3/K4 masked Laplace forward and backward;
+     through the plain version, K3/K4 masked Laplace forward and backward
+     in fp32 and bf16 on experts' slices of a stacked decode;
   4. the serving path at the flagship model's full width (random weights
      from --seed): embed, crossmodal, crossmodal_ci and reconstruct through
      InferenceServer, with K1's launch count checked against what the
@@ -34,8 +35,11 @@ sm_90a), nvcc and Triton. Phases, each printing its own lines:
      and its library yardstick (K1 at rate 0 and 0.1 beside SDPA without
      and with dropout), and a profile of one step;
      K1 at rate 0.1 and K2 are held against their plain versions on the
-     same R = 768 inputs; K3 and K4 also at the drivers' [32, 982], each
-     beside one torch.sum over the same rows;
+     same R = 768 inputs; K3 and K4 on experts' [K, B, 982] slices (the
+     step's [2, 192], the drivers' [2, 16], the ZTF driver's [8, 32]),
+     each beside one torch.sum over the same rows and the wrapper's host
+     time per call; the device time and kernels of one grid_loglik
+     forward and backward on an expert's slice of a real MMVAE decode;
  10. the training drivers at the flagship widths on synthetic data from
      --seed, checkpoints and logs under build/chip_smoke/: (a)
      train_photospectra.main for 3 epochs, saving each, every epoch's
@@ -232,13 +236,39 @@ def attention_bwd_bound(rows, lq, lk, dtype):
     return bound(nbytes, rows * HEADS * lq * lk * 10 * dh, PEAK_FLOPS[dtype])
 
 
-def laplace_bound(rows, n, x_rows, backward):
-    """K3/K4's bound: fp32 loc [R, N], x [Rx, N], the byte mask [R, N] read
-    once, the row sums [R] (K3) or g [R] in and dloc [R, N] out (K4); ~7
-    fp32 operations per point."""
-    nbytes = rows * n * 4 + x_rows * n * 4 + rows * n + rows * 4
-    nbytes += rows * n * 4 if backward else 0
+def laplace_bound(rows, n, x_rows, backward, dtype=torch.float32):
+    """K3/K4's bound: loc [R, N] in its dtype, fp32 x [Rx, N] and the byte
+    mask [R, N] read once, the fp32 row sums [R] written (K3), or g [R] read
+    and dloc [R, N] written in loc's dtype (K4); ~7 fp32 operations per
+    point."""
+    size = torch.finfo(dtype).bits // 8
+    nbytes = rows * n * size + x_rows * n * 4 + rows * n + rows * 4
+    nbytes += rows * n * size if backward else 0
     return bound(nbytes, 7 * rows * n, PEAK_FLOPS[torch.float32])
+
+
+# (M, K, B, N) of the likelihood's grid: an expert's [K, B, N] slice of the
+# stacked [M·K, B, N] decode at the B = 192 step, the B = 16 drivers and
+# the ZTF MMVAE driver (K = 8, B = 32); then a single expert, a row past one
+# 1024-point chunk and odd rows (single points, not pairs)
+LAPLACE_PATH = [(M, K_TRAIN, B_TRAIN, NS), (M, K_TRAIN, B_DRIVER, NS), (M, 8, 32, NS)]
+LAPLACE_EDGES = [(1, 1, 32, NS), (1, 3, 5, 2000), (M, K_TRAIN, 7, 129), (M, K_TRAIN, 7, 981)]
+
+
+def laplace_inputs(m, k, b, n, dtype, seed):
+    """An expert's slice as MMVAE.forward hands it to grid_loglik: loc and
+    the mask [K, B, N] of the transposed [B, M·K, N] decode (strides N and
+    M·K·N), the [B, N] data, g [K, B]. Row (0, 0) is fully masked and x
+    equals loc at its first points (sign(0) = 0)."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    e = m - 1
+    loc = torch.randn(b, m * k, n, device="cuda", generator=g).to(dtype).transpose(0, 1)
+    mask = (torch.rand(b, m * k, n, device="cuda", generator=g) < 0.2).transpose(0, 1)
+    loc, mask = loc[e * k:(e + 1) * k], mask[e * k:(e + 1) * k]
+    mask[0, 0] = True
+    x = torch.randn(b, n, device="cuda", generator=g)
+    x[0, :5] = loc[0, 0, :5].float()
+    return loc, x, mask, torch.randn(k, b, device="cuda", generator=g)
 
 
 def unit_floors(pairs, sm_clock_mhz):
@@ -331,10 +361,13 @@ def phase_build():
     targets = _build.build_all()
     log(2, f"built {sorted(targets)} in {time.perf_counter() - t0:.1f} s")
     for name, text in _build.build_logs.items():
+        function = ""
         for line in text.splitlines():
+            if "Function properties for" in line:
+                function = line.split("for", 1)[1].strip()
             if "Used" in line or ("spill" in line and ", 0 bytes spill stores, 0 bytes "
                                                        "spill loads" not in line):
-                log(2, f"{name}: {line.strip()}")
+                log(2, f"{name}: {line.strip()}" + (f" ({function})" if "spill" in line else ""))
 
 
 def _rel(got, want):
@@ -405,30 +438,43 @@ def phase_kernel_vs_plain():
                    + ", ".join(f"{e:.2e}" for e in errs[torch.bfloat16]))
             assert all(np.isfinite(e) and e <= 1e-4 for e in errs[torch.float32]), label
             assert all(np.isfinite(e) and e <= 2e-2 for e in errs[torch.bfloat16]), label
-    # K3/K4: the paths' [K·B, 982] rows over [B, 982] data (the B = 192
-    # step, the B = 16 drivers); a row past a power of two (N = 2000 in a
-    # 2048 block); a single row
-    g = torch.Generator("cuda").manual_seed(300)
-    for rows, n, x_rows in ((K_TRAIN * B_TRAIN, NS, B_TRAIN), (K_TRAIN * B_DRIVER, NS, B_DRIVER),
-                            (6, 2000, 3), (1, NS, 1)):
-        loc = torch.randn(rows, n, device="cuda", generator=g)
-        x = torch.randn(x_rows, n, device="cuda", generator=g)
-        x[0, :5] = loc[0, :5]  # sign(0) = 0
-        mask = torch.rand(rows, n, device="cuda", generator=g) < 0.2
-        gout = torch.randn(rows, device="cuda", generator=g)
-        ref = laplace.masked_laplace_loglik_reference(loc, x, mask, BIG_SPECTRA)
-        dref = laplace.masked_laplace_grad_reference(loc, x, mask, BIG_SPECTRA, gout)
-        out = laplace.masked_laplace_loglik_fwd(loc, x, mask, BIG_SPECTRA)
-        dloc = laplace.masked_laplace_loglik_bwd(loc, x, mask, BIG_SPECTRA, gout)
-        torch.cuda.synchronize()
-        e3, e4 = (out - ref).abs().max().item(), (dloc - dref).abs().max().item()
-        log(3, f"laplace R={rows} N={n} x rows {x_rows}: fwd max-abs {e3:.3e} "
-               f"(rel {_rel(out, ref):.2e}), bwd max-abs {e4:.3e}")
-        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
-        torch.testing.assert_close(dloc, dref, rtol=1e-6, atol=0)
-        assert bool((dloc[0, :5] == 0).all())
-        worst["laplace_fwd"] = max(worst["laplace_fwd"], e3)
-        worst["laplace_bwd"] = max(worst["laplace_bwd"], e4)
+    # K3/K4 on experts' slices of a stacked decode, fp32 and bf16 loc, the
+    # row sums rtol 1e-5 / atol 1e-3 (~N terms in another order) and K4
+    # rtol 1e-6 in fp32, one bf16 ulp (2^-8 relative) in bf16, against the
+    # plain versions on the same (widened) loc; then the flat form [R, N]
+    # over [R/K, N] data at the step's shape
+    for case in LAPLACE_PATH + LAPLACE_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            loc, x, mask, gout = laplace_inputs(*case, dtype, seed=300)
+            ref = laplace.masked_laplace_loglik_reference(loc, x, mask, BIG_SPECTRA)
+            dref = laplace.masked_laplace_grad_reference(loc, x, mask, BIG_SPECTRA, gout)
+            out = laplace.masked_laplace_loglik_fwd(loc, x, mask, BIG_SPECTRA)
+            dloc = laplace.masked_laplace_loglik_bwd(loc, x, mask, BIG_SPECTRA, gout)
+            torch.cuda.synchronize()
+            e3, e4 = (out - ref).abs().max().item(), (dloc.float() - dref).abs().max().item()
+            m, k, b, n = case
+            log(3, f"laplace [{k}, {b}, {n}] slice of [{m * k}, {b}, {n}] {str(dtype)[6:]}: fwd "
+                   f"max-abs {e3:.3e} (rel {_rel(out, ref):.2e}), bwd max-abs {e4:.3e}")
+            assert dloc.dtype == dtype and out.shape == (k, b)
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+            if dtype == torch.float32:
+                torch.testing.assert_close(dloc, dref, rtol=1e-6, atol=0)
+                worst["laplace_fwd"] = max(worst["laplace_fwd"], e3)
+                worst["laplace_bwd"] = max(worst["laplace_bwd"], e4)
+            else:
+                torch.testing.assert_close(dloc.float(), dref, rtol=2 ** -8, atol=0)
+            assert bool((dloc[0, 0, :5] == 0).all())
+    loc, x, mask, gout = laplace_inputs(*LAPLACE_PATH[0], torch.float32, seed=301)
+    flat = [t.transpose(0, 1).reshape(B_TRAIN * K_TRAIN, -1) for t in (loc, mask)]
+    out = laplace.masked_laplace_loglik_fwd(flat[0], x, flat[1], BIG_SPECTRA)
+    dloc = laplace.masked_laplace_loglik_bwd(flat[0], x, flat[1], BIG_SPECTRA,
+                                             gout.T.reshape(-1))
+    torch.testing.assert_close(out, laplace.masked_laplace_loglik_reference(
+        flat[0], x, flat[1], BIG_SPECTRA), rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(dloc, laplace.masked_laplace_grad_reference(
+        flat[0], x, flat[1], BIG_SPECTRA, gout.T.reshape(-1)), rtol=1e-6, atol=0)
+    log(3, f"laplace flat [{B_TRAIN * K_TRAIN}, {NS}] over [{B_TRAIN}, {NS}] data: within "
+           f"the same tolerances")
     return worst
 
 
@@ -631,7 +677,7 @@ def phase_training(seed):
             got = tuple(b - a for a, b in zip(before, kernel_counts()))
             assert got == want, (precision, i, got, want)
         assert np.isfinite(losses).all(), (precision, losses)
-        med = statistics.median(times[1:])  # the first step compiles the Triton kernels
+        med = statistics.median(times[1:])  # the first step warms caches and cuBLAS
         peak = torch.cuda.max_memory_allocated() / 2**20
         log(7, f"{precision}: losses {', '.join(f'{x:.2f}' for x in losses)}; step times "
                f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median of steps 2-"
@@ -798,40 +844,75 @@ def phase_train_times(train, seed, sm_clock_mhz):
     del q, k, v, mask, dout, want_out, want_grads
     torch.cuda.empty_cache()
 
-    # K3/K4 at the B = 192 step's [K·B, 982] rows and at the flagship
-    # driver's (B = 16); beside each, one torch.sum over the same fp32 rows,
-    # a library call that reads loc's bytes and does less work than K3
-    for b in (B_TRAIN, B_DRIVER):
-        R, x_rows, suffix = K_TRAIN * b, b, "" if b == B_TRAIN else f"_{K_TRAIN * b}"
-        g = torch.Generator("cuda").manual_seed(9)
-        loc = torch.randn(R, NS, device="cuda", generator=g)
-        x = torch.randn(x_rows, NS, device="cuda", generator=g)
-        lmask = torch.rand(R, NS, device="cuda", generator=g) < 0.2
-        gout = torch.randn(R, device="cuda", generator=g)
-        calls = {
-            "k3": lambda: laplace.masked_laplace_loglik_fwd(loc, x, lmask, BIG_SPECTRA),
-            "k4": lambda: laplace.masked_laplace_loglik_bwd(loc, x, lmask, BIG_SPECTRA, gout),
-            "p3": lambda: laplace.masked_laplace_loglik_reference(loc, x, lmask, BIG_SPECTRA),
-            "p4": lambda: laplace.masked_laplace_grad_reference(loc, x, lmask, BIG_SPECTRA,
-                                                                 gout),
-            "sum": lambda: torch.sum(loc, dim=1)}
-        host = {key: time_ms(fn, inner=100) for key, fn in calls.items()}
-        dev = {key: device_ms(fn) for key, fn in calls.items()}
-        b3, b4 = laplace_bound(R, NS, x_rows, False), laplace_bound(R, NS, x_rows, True)
-        res.update({key + suffix: t for key, t in dev.items()})
-        res["b3" + suffix], res["b4" + suffix] = b3, b4
-        us = {key: f"{t * 1e3:.3f} us" for key, t in dev.items()}
-        log(9, f"laplace [{R}, {NS}] over [{x_rows}, {NS}] data, device time per call: K3 "
-               f"{us['k3']} (bound {b3[0] * 1e3:.3f} us, {b3[1]}; plain {us['p3']}); K4 "
-               f"{us['k4']} (bound {b4[0] * 1e3:.3f} us, {b4[1]}; plain {us['p4']}); "
-               f"torch.sum(loc, dim=1) {us['sum']}; no single library call computes K3 or K4")
-        log(9, f"laplace [{R}, {NS}] wrapper throughput (100 back-to-back calls between CUDA "
-               f"events, set by the host): "
-               + ", ".join(f"{key} {t * 1e3:.2f} us" for key, t in host.items()))
+    # K3/K4 on experts' [K, B, 982] slices of a stacked decode, fp32 and
+    # bf16 loc; beside each, one torch.sum over the same loc (a library call
+    # that reads loc's bytes and does less work than K3) and the wrapper's
+    # host time per call
+    for case in LAPLACE_PATH:
+        _, k, b, n = case
+        for dtype in (torch.float32, torch.bfloat16):
+            loc, x, lmask, gout = laplace_inputs(*case, dtype, seed=9)
+            calls = {
+                "k3": lambda: laplace.masked_laplace_loglik_fwd(loc, x, lmask, BIG_SPECTRA),
+                "k4": lambda: laplace.masked_laplace_loglik_bwd(loc, x, lmask, BIG_SPECTRA,
+                                                                gout),
+                "p3": lambda: laplace.masked_laplace_loglik_reference(loc, x, lmask,
+                                                                      BIG_SPECTRA),
+                "p4": lambda: laplace.masked_laplace_grad_reference(loc, x, lmask, BIG_SPECTRA,
+                                                                     gout),
+                "sum": lambda: torch.sum(loc, dim=-1)}
+            dev = {key: device_ms(fn) for key, fn in calls.items()}
+            host = {key: time_ms(calls[key], inner=100) for key in ("k3", "k4")}
+            b3 = laplace_bound(k * b, n, b, False, dtype)
+            b4 = laplace_bound(k * b, n, b, True, dtype)
+            res[("laplace", k * b, dtype)] = dict(dev, b3=b3, b4=b4, host3=host["k3"],
+                                                  host4=host["k4"])
+            us = {key: f"{t * 1e3:.3f} us" for key, t in dev.items()}
+            log(9, f"laplace [{k}, {b}, {n}] slice {str(dtype)[6:]}, device time per call: K3 "
+                   f"{us['k3']} (bound {b3[0] * 1e3:.3f} us, {b3[1]}, "
+                   f"{b3[0] / dev['k3']:.1%} of it; plain {us['p3']}); K4 {us['k4']} (bound "
+                   f"{b4[0] * 1e3:.3f} us, {b4[1]}, {b4[0] / dev['k4']:.1%}; plain {us['p4']}); "
+                   f"torch.sum(loc, dim=-1) {us['sum']}; wrapper host time per call (100 "
+                   f"back-to-back between CUDA events) K3 {host['k3'] * 1e3:.2f} us, K4 "
+                   f"{host['k4'] * 1e3:.2f} us")
+    res["grid_loglik"] = grid_loglik_call(train["fp32"][2].model, seed)
     for precision, (_, _, state, step, batch) in train.items():
         profile_calls(lambda: step(state, batch), f"train step {precision}", n=2, top=12,
                       phase=9)
     return res
+
+
+def grid_loglik_call(model, seed):
+    """Device time and kernels of one grid_loglik forward, and forward +
+    backward, on expert 0's [K, B, 982] slice of the spectra decoder's
+    stacked [M·K, B, 982] output (the flagship model, random latents, the
+    drivers' B = 16), as MMVAE.forward slices it; the backward runs into
+    the whole stack. In fp32 and on the bf16 decode of autocast."""
+    batch = to_device(make_batch(B_DRIVER, seed + 30), torch.device("cuda"))
+    g = torch.Generator("cuda").manual_seed(seed)
+    z_all = torch.randn(M * K_TRAIN, B_DRIVER, LATENT_LEN, LATENT_DIM, device="cuda", generator=g)
+    gout = torch.randn(K_TRAIN, B_DRIVER, device="cuda", generator=g)
+    out = {}
+    for precision in ("fp32", "bf16"):
+        with torch.no_grad(), torch.autocast("cuda", torch.bfloat16, enabled=precision == "bf16"):
+            px_all = model.vaes[1].decode(z_all, batch[1], seed)
+        stack = px_all.loc.detach().requires_grad_()
+        d = distributions.MaskedGridLaplace(stack[:K_TRAIN], px_all.mask[:K_TRAIN], px_all.big)
+        assert not d.loc.is_contiguous() and not d.mask.is_contiguous()
+
+        def fwd_bwd():
+            stack.grad = None
+            d.grid_loglik(batch[1][0]).backward(gout)
+
+        f_ms, f_n, f_names = device_kernels(lambda: d.grid_loglik(batch[1][0]))
+        fb_ms, fb_n, fb_names = device_kernels(fwd_bwd)
+        log(9, f"grid_loglik on expert 0's slice {tuple(d.loc.shape)} {d.loc.dtype} of a "
+               f"flagship decode (strides {d.loc.stride()}): forward {f_ms * 1e3:.3f} us "
+               f"device, {f_n} kernel per call ({f_names}); forward + backward "
+               f"{fb_ms * 1e3:.3f} us, {fb_n} kernels ({fb_names})")
+        assert f_n == 1 and "laplace_fwd_kernel" in next(iter(f_names)), f_names
+        out[precision] = (f_ms, f_n, fb_ms, fb_n)
+    return out
 
 
 # -- the training drivers --------------------------------------------------------
@@ -1030,21 +1111,41 @@ def report_profile(prof, wall_us, n, label, top, phase):
     return busy_us / wall_us
 
 
-def device_ms(call, n=100):
-    """Device milliseconds per ``call``: the time of the kernels it
-    launches under torch.profiler, summed, over ``n`` calls (the host's
-    launch cost between them left out)."""
+def device_kernels(call, n=100):
+    """(device ms per call, kernels per call, {kernel: launches per call})
+    of ``call`` under torch.profiler over ``n`` calls: each kernel's mean
+    time times its launches per call (rounded: the profiler may drop a few
+    of the first events), summed; the host's launch cost between kernels is
+    left out."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            call()
-        torch.cuda.synchronize()
-    busy_us = sum(_device_us(e) for e in prof.key_averages() if _is_kernel(e))
+    for _ in range(3):  # a short profile now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if _is_kernel(e) and e.count > 0]
+        if events:
+            break
+    per_call = {e.key: max(1, round(e.count / n)) for e in events}
+    busy_us = sum(_device_us(e) / e.count * per_call[e.key] for e in events)
     assert busy_us > 0, "the profiler saw no device time"
-    return busy_us / n / 1e3
+    names = {kernel_name(k): c for k, c in per_call.items()}
+    return busy_us / 1e3, sum(per_call.values()), names
+
+
+def kernel_name(key):
+    """A profiler key without namespaces, return type and argument list,
+    cut to 60 characters."""
+    name = key.replace("(anonymous namespace)::", "").replace("at::native::", "")
+    return (name[5:] if name.startswith("void ") else name).split("(")[0][:60]
+
+
+def device_ms(call, n=100):
+    """Device milliseconds per ``call`` (see ``device_kernels``)."""
+    return device_kernels(call, n)[0]
 
 
 def main(argv=None):
@@ -1080,8 +1181,11 @@ def main(argv=None):
     f32, b16 = t[torch.float32], t[torch.bfloat16]
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], t["err_f"])
     errs["attention_bwd"] = max(errs["attention_bwd"], t["err_b"])
-    attn_src, lap_src = "vaesne_tpu_torch/csrc/attention_{}.cu", "vaesne_tpu_torch/ops/laplace.py"
-    r32 = f"_{K_TRAIN * B_DRIVER}"
+    attn_src = "vaesne_tpu_torch/csrc/attention_{}.cu"
+    lap_src = "vaesne_tpu_torch/csrc/laplace.cu"
+    step_rows = K_TRAIN * B_TRAIN
+    lap32, lap16 = t[("laplace", step_rows, torch.float32)], t[("laplace", step_rows,
+                                                                  torch.bfloat16)]
     rows = [
         ("attention_fwd", "cuda", attn_src.format("fwd"), "vaesne_tpu/ops/attention.py:304",
          serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib, ms16, lib16,
@@ -1093,26 +1197,33 @@ def main(argv=None):
         ("attention_bwd", "cuda", attn_src.format("bwd"), "vaesne_tpu/ops/attention.py:353",
          train_launches["K2"], errs["attention_bwd"], f32["bwd"], t["plain_b"], f32["b_b"],
          f32["lib_b"], b16["bwd"], b16["lib_b"], drivers["K2"]),
-        ("laplace_fwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:30",
-         train_launches["K3"], errs["laplace_fwd"], t["k3"], t["p3"], t["b3"], None, None, None,
-         drivers["K3"]),
-        ("laplace_bwd", "triton", lap_src, "vaesne_tpu/ops/laplace.py:38",
-         train_launches["K4"], errs["laplace_bwd"], t["k4"], t["p4"], t["b4"], None, None, None,
-         drivers["K4"]),
+        ("laplace_fwd", "cuda", lap_src, "vaesne_tpu/ops/laplace.py:30",
+         train_launches["K3"], errs["laplace_fwd"], lap32["k3"], lap32["p3"], lap32["b3"], None,
+         lap16["k3"], None, drivers["K3"]),
+        ("laplace_bwd", "cuda", lap_src, "vaesne_tpu/ops/laplace.py:38",
+         train_launches["K4"], errs["laplace_bwd"], lap32["k4"], lap32["p4"], lap32["b4"], None,
+         lap16["k4"], None, drivers["K4"]),
     ]
     # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
-    # inputs (null for the fp32-only Laplace kernels); launches_drivers counts
-    # phase 10's path (K1 at rate 0: the from_checkpoint serving); the Laplace
-    # rows add their time at the drivers' [32, 982] and torch.sum's at both
+    # inputs; launches_drivers counts phase 10's path (K1 at rate 0: the
+    # from_checkpoint serving). The Laplace rows are at the step's [2, 192]
+    # slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
+    # dtype, their device time, bound, torch.sum's time and the wrapper's
+    # host time per call; no single library call computes K3 or K4
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    laplace_at_32 = {
-        name: {f"ms{r32}": t[f"k{n}{r32}"], f"bound_ms{r32}": t[f"b{n}{r32}"][0],
-               "torch_sum_ms": t["sum"], f"torch_sum_ms{r32}": t[f"sum{r32}"]}
-        for name, n in (("laplace_fwd", 3), ("laplace_bwd", 4))}
+    laplace_extra = {}
+    for name, n in (("laplace_fwd", 3), ("laplace_bwd", 4)):
+        extra = laplace_extra.setdefault(name, {})
+        for _, k, b, _ in LAPLACE_PATH:
+            for dtype, d in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+                r = t[("laplace", k * b, dtype)]
+                extra.update({f"ms{d}_{k * b}": r[f"k{n}"], f"bound_ms{d}_{k * b}": r[f"b{n}"][0],
+                              f"torch_sum_ms{d}_{k * b}": r["sum"],
+                              f"host_ms{d}_{k * b}": r[f"host{n}"]})
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
-             **laplace_at_32.get(r[0], {}))
+             **laplace_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

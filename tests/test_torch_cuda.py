@@ -1,6 +1,6 @@
 """The port's kernels and its card-only behaviour. These tests need an
-NVIDIA card with nvcc and Triton (the kernels have no CPU mode) and skip
-elsewhere; on the card run them with
+NVIDIA card with nvcc (the kernels have no CPU mode) and skip elsewhere;
+on the card run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 
@@ -196,15 +196,24 @@ def test_dropout_keep_rate(cuda):
     assert abs(keep - p) <= 4 * (p * (1 - p) / n) ** 0.5, keep
 
 
+def _bf16_close(got, want):
+    """Within one bf16 ulp of the fp32 plain value: |got − want| ≤
+    2⁻⁸·|want| (round to nearest gives at most half an ulp)."""
+    torch.testing.assert_close(got.float(), want, rtol=2 ** -8, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,N,x_rows", [(384, 982, 192), (384, 982, 384), (1, 982, 1),
-                                        (6, 130, 3), (4, 2000, 1)])
-def test_laplace_kernels_match_plain_versions(cuda, R, N, x_rows):
-    """K3 (row sums, fp32 rtol 1e-5: sums of ~N terms in another order) and
-    K4 (elementwise, the same operations: 1e-6)."""
+                                        (6, 130, 3), (4, 2000, 1), (6, 981, 3)])
+def test_laplace_kernels_match_plain_versions(cuda, R, N, x_rows, dtype):
+    """K3 and K4 in the flat form, [R, N] rows over [Rx, N] data: K3 (row
+    sums, rtol 1e-5, atol 1e-3: sums of ~N terms in another order) and K4
+    (elementwise, the same operations: fp32 rtol 1e-6; bf16 loc within one
+    bf16 ulp), against the plain versions on the same loc (bf16 widened)."""
     g = torch.Generator(cuda).manual_seed(3)
-    loc = torch.randn(R, N, device=cuda, generator=g, requires_grad=True)
+    loc = torch.randn(R, N, device=cuda, generator=g).to(dtype).requires_grad_()
     x = torch.randn(x_rows, N, device=cuda, generator=g)
-    x[0, :5] = loc[0, :5].detach()  # sign(0) = 0
+    x[0, :5] = loc[0, :5].detach().float()  # sign(0) = 0
     mask = torch.rand(R, N, device=cuda, generator=g) < 0.2
     ref = laplace.masked_laplace_loglik_reference(loc, x, mask, 1e10)
     before = (laplace.launches, laplace.bwd_launches)
@@ -215,8 +224,104 @@ def test_laplace_kernels_match_plain_versions(cuda, R, N, x_rows):
     assert (laplace.launches, laplace.bwd_launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
     want = laplace.masked_laplace_grad_reference(loc.detach(), x, mask, 1e10, gout)
-    torch.testing.assert_close(loc.grad, want, rtol=1e-6, atol=0)
+    assert loc.grad.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(loc.grad, want, rtol=1e-6, atol=0)
+    else:
+        _bf16_close(loc.grad, want)
     assert (loc.grad[0, :5] == 0).all()
+
+
+# (M, K, B, N): an expert's [K, B, N] slice of a stacked [M·K, B, N] decode;
+# the B = 192 step and the B = 16 drivers (M = 2, K = 2), the ZTF MMVAE
+# driver (K = 8, B = 32), a single expert, a row past one 1024-point chunk,
+# and odd rows that take single points
+GRID_CASES = [(2, 2, 192, 982), (2, 2, 16, 982), (2, 8, 32, 982), (1, 1, 32, 982),
+              (1, 3, 5, 2000), (2, 2, 7, 129), (2, 2, 7, 981)]
+
+
+def _grid_inputs(device, M, K, B, N, dtype, seed=0):
+    """loc, the mask and g as the MMVAE hands them over (expert 1's slice
+    of the transposed [B, M·K, N] decode), the data x [B, N], and the whole
+    stack as a leaf. Row (0, 0) is fully masked; x = loc at its first
+    points (sign(0) = 0)."""
+    g = torch.Generator(device).manual_seed(seed)
+    e = M - 1
+    stack = torch.randn(B, M * K, N, device=device, generator=g).to(dtype).requires_grad_()
+    loc = stack.transpose(0, 1)[e * K:(e + 1) * K]
+    mask_stack = torch.rand(B, M * K, N, device=device, generator=g) < 0.2
+    mask = mask_stack.transpose(0, 1)[e * K:(e + 1) * K]
+    mask[0, 0] = True
+    x = torch.randn(B, N, device=device, generator=g)
+    x[0, :5] = loc[0, 0, :5].detach().float()
+    gout = torch.randn(K, B, device=device, generator=g)
+    return stack, loc, x, mask, gout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,B,N", GRID_CASES)
+def test_laplace_grid_kernels_match_plain_versions(cuda, M, K, B, N, dtype):
+    """K3 and K4 in the grid form on the decoder's own layout, with the
+    tolerances of the flat form; the gradient reaches the stack in the
+    expert's rows only, in loc's dtype."""
+    stack, loc, x, mask, gout = _grid_inputs(cuda, M, K, B, N, dtype)
+    assert M * K == 1 or not loc.is_contiguous()
+    ref = laplace.masked_laplace_loglik_reference(loc, x, mask, 1e10)
+    before = (laplace.launches, laplace.bwd_launches)
+    out = laplace.masked_laplace_loglik(loc, x, mask, 1e10)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert (laplace.launches, laplace.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (K, B) and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+    want = laplace.masked_laplace_grad_reference(loc.detach(), x, mask, 1e10, gout)
+    grad = stack.grad.transpose(0, 1)
+    e = M - 1
+    assert grad.dtype == dtype and (grad[:e * K] == 0).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(grad[e * K:], want, rtol=1e-6, atol=0)
+    else:
+        _bf16_close(grad[e * K:], want)
+    assert (grad[e * K, 0, :5] == 0).all()
+    # the mask broadcast over K (stride 0) and the data expanded to [K, B, N]
+    bmask = mask[0].expand(K, B, N)
+    torch.testing.assert_close(laplace.masked_laplace_loglik_fwd(loc, x.expand(K, B, N), bmask,
+                                                                 1e10),
+                               laplace.masked_laplace_loglik_reference(loc, x, bmask, 1e10),
+                               rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_laplace_kernels_are_deterministic(cuda, dtype):
+    """K3 and K4 twice on the same inputs give equal bits (every sum in a
+    fixed order, no atomics), at the step's and the drivers' shapes."""
+    for M, K, B, N in GRID_CASES[:3]:
+        _, loc, x, mask, gout = _grid_inputs(cuda, M, K, B, N, dtype, seed=1)
+        runs = [(laplace.masked_laplace_loglik_fwd(loc, x, mask, 1e10),
+                 laplace.masked_laplace_loglik_bwd(loc, x, mask, 1e10, gout)) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grid_loglik_launches_one_kernel(cuda, dtype):
+    """One ``grid_loglik`` forward on an expert's slice of a stacked decode
+    runs exactly one kernel on the card, K3: no copy of loc or the mask
+    and no cast of bf16 loc before it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaesne_tpu_torch.distributions import MaskedGridLaplace
+
+    _, loc, x, mask, _ = _grid_inputs(cuda, 2, 2, 16, 982, dtype)
+    d = MaskedGridLaplace(loc.detach(), mask, 1e10)
+    d.grid_loglik(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        d.grid_loglik(x)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "laplace_fwd_kernel" in kernels[0].name, \
+        [e.name for e in kernels]
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):

@@ -2,12 +2,13 @@
 
 A second package beside the JAX reference ``vaesne_tpu``: the serving and
 training paths of the photometry + spectra MoE-MMVAE in PyTorch, with the
-JAX package's TPU kernels on those paths written by hand for Hopper (fused
-masked attention forward and backward in CUDA C++, the masked Laplace
-log-likelihood forward and backward in Triton), and the data layer, configs,
+JAX package's TPU kernels on those paths written by hand for Hopper in CUDA
+C++ (fused masked attention forward and backward, the masked Laplace
+log-likelihood forward and backward), and the data layer, configs,
 checkpoints and training drivers (``data``, ``utils.config``,
 ``utils.checkpoint``, ``experiments``). Imports torch, numpy and the
-standard library only (and Triton, at the first launch on a card).
+standard library only; the kernels are built with nvcc at their first use
+on a card.
 """
 
 from . import objectives, training

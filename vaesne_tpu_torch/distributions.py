@@ -145,19 +145,29 @@ class MaskedGridLaplace:
         (K, B) axes: [K, B], fp32. ``x`` is the unexpanded data [B, ...] or
         broadcasts against ``loc``.
 
-        Rows are flattened BATCH-major (row b·K + k), as the decoder made
-        them, so the flatten of ``loc`` and the mask undoes ``decode``'s exit
-        transpose; unexpanded data stays [B, N] and the kernel reads row
-        r // K of it. ``loc`` is cast to fp32 first (under bf16 autocast
-        the decoder hands over bf16)."""
+        On CUDA tensors with a grid routed to the kernels, ``loc`` and the
+        mask go to K3 as [K, B, N] views of what the decoder made (an
+        expert's slice of the stacked decode, the mask broadcast where it
+        is), in loc's dtype (bf16 under autocast): no copy and no cast.
+        Elsewhere rows are flattened BATCH-major (row b·K + k), as the
+        decoder made them, so the flatten undoes ``decode``'s exit
+        transpose; unexpanded data stays [B, N] and row r reads row r // K
+        of it; ``loc`` is cast to fp32 first."""
         K, B = self.loc.shape[:2]
+        n = math.prod(self.loc.shape[2:])
+        unexpanded = tuple(x.shape) == tuple(self.loc.shape[1:])
+        if self.loc.is_cuda and laplace_routes_to_kernel(n):
+            loc = self.loc.reshape(K, B, n)
+            mask = self.mask.expand(self.loc.shape).reshape(K, B, n)
+            data = x.reshape(B, n) if unexpanded else x.expand(self.loc.shape).reshape(K, B, n)
+            return masked_laplace_loglik(loc, data, mask, float(self.big))
 
         def flat(a):
             return a.transpose(0, 1).reshape(B * K, -1)
 
         loc = flat(self.loc).float()
         mask = flat(self.mask.expand(self.loc.shape))
-        if tuple(x.shape) == tuple(self.loc.shape[1:]):
+        if unexpanded:
             data = x.reshape(B, -1)
         else:
             data = flat(x.expand(self.loc.shape))

@@ -1,5 +1,5 @@
-"""Hand-written kernels of the port (CUDA C++ and Triton), their plain
-versions and the dispatch rules that send a layer to them."""
+"""Hand-written CUDA C++ kernels of the port, their plain versions and the
+dispatch rules that send a layer to them."""
 
 from .attention import (
     attend,

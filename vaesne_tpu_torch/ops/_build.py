@@ -11,6 +11,7 @@ raises with nvcc's stderr. Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -86,3 +87,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(lib: str, name: str, argtypes: tuple):
+    """The C function ``name`` of ``csrc/<lib>.cu`` with its argument types
+    declared, returning an int (a cudaError_t); bound once per process."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(rc: int, what: str):
+    """Raise if a launch returned a cudaError_t other than 0."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")

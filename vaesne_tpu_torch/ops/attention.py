@@ -209,13 +209,8 @@ def _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
 
 
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-
-
-def _lib_fn(lib: str, name: str, argtypes):
-    fn = getattr(_build.load(lib), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+_FWD_ARGS = (_p,) * 7 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p)
+_BWD_ARGS = (_p,) * 13 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p)
 
 
 def _dropout_args(rate, seed):
@@ -231,11 +226,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t``, or a copy of it where its data does not start on 16 bytes (a
     view at an odd offset): the kernels stage rows with 16-byte cp.async."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _raise_on(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {rc}")
 
 
 def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -260,15 +250,14 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.empty_like(m)
     if R == 0 or lq == 0:
         return out, m, l
-    fn = _lib_fn("attention_fwd", "vaesne_attention_fwd",
-                 [_p] * 7 + [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p])
+    fn = _build.function("attention_fwd", "vaesne_attention_fwd", _FWD_ARGS)
     seed32, thr, scale = _dropout_args(dropout_rate, seed)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), _ptr(m), _ptr(l), R, lq, k.shape[1], num_heads,
                 e // num_heads, _DTYPE_CODES[q.dtype], seed32, thr, scale,
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "attention_fwd")
+    _build.check(rc, "attention_fwd")
     global launches, dropout_launches
     launches += 1
     dropout_launches += dropout_rate > 0.0
@@ -302,8 +291,7 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty_like(row_max)
     dq_acc = torch.empty(R, num_heads, lq, hd, dtype=torch.float32, device=q.device)
-    fn = _lib_fn("attention_bwd", "vaesne_attention_bwd",
-                 [_p] * 13 + [ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p])
+    fn = _build.function("attention_bwd", "vaesne_attention_bwd", _BWD_ARGS)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
@@ -311,7 +299,7 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                 dv.data_ptr(), R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
                 *_dropout_args(dropout_rate, seed),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "attention_bwd")
+    _build.check(rc, "attention_bwd")
     global bwd_launches
     bwd_launches += 1
     return dq, dk, dv
