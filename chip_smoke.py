@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -71,6 +71,8 @@ import numpy as np
 import torch
 
 import vaesne_tpu_torch.distributions as distributions
+import vaesne_tpu_torch.evaluation.harness as harness
+import vaesne_tpu_torch.nn.layers as layers
 import vaesne_tpu_torch.ops.attention as attention
 import vaesne_tpu_torch.ops.laplace as laplace
 from vaesne_tpu_torch import (
@@ -86,6 +88,8 @@ from vaesne_tpu_torch import (
 )
 from vaesne_tpu_torch.data import multimodal_tuple
 from vaesne_tpu_torch.experiments import (
+    eval_goldstein,
+    eval_masking,
     train_photometry,
     train_photospectra,
     train_spectra,
@@ -110,6 +114,13 @@ BIG_SPECTRA = 1e10  # the spectra likelihood's mask variance
 # the flagship driver's batch (PhotoSpectraMMVAEConfig) and phase 10's run
 B_DRIVER, DRIVER_EPOCHS, N_HELD_OUT = 16, 3, 32
 SMOKE_DIR = os.path.join("build", "chip_smoke")
+# phase 11: the shipped flagship checkpoint bridged into the port, the JAX
+# package's K = 100 results for it, and the harness's chunk sizes
+EVAL_CKPT = os.path.join("artifacts", "ckpt_torch", "goldstein_photospec_4-4_K2_beta1.0")
+EVAL_REF = {"latent": os.path.join("artifacts", "eval", "avg_metrics.npz"),
+            "predictive": os.path.join("artifacts", "eval_predictive", "avg_metrics.npz")}
+SWEEP_REF = os.path.join("artifacts", "eval", "masking_sweep.npz")
+K_EVAL, SUITE_CHUNK, SWEEP_CHUNK = 100, 64, 32
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, fp32
 # FMA-pipe flop/s, bf16 tensor-core flop/s
@@ -190,6 +201,13 @@ def time_ms(fn, reps=10, warmup=3, inner=1):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def randn_like(t, seed):
+    """Standard normal draws of ``t``'s shape and dtype on its device, from
+    their own generator."""
+    g = torch.Generator(t.device).manual_seed(seed)
+    return torch.randn(t.shape, device=t.device, dtype=t.dtype, generator=g)
 
 
 def attention_inputs(rows, lq, lk, masked, seed, full_row=False):
@@ -302,7 +320,7 @@ def sdpa_train_call(q, k, v, mask, dropout):
     forward and backward with the float mask and dropout."""
     q4, k4, v4, bias = _sdpa_operands(q, k, v, mask)
     leaves = [t.requires_grad_() for t in (q4, k4, v4)]
-    dout = torch.randn_like(q4)
+    dout = randn_like(q4, 40)
 
     def run():
         out = torch.nn.functional.scaled_dot_product_attention(
@@ -319,7 +337,7 @@ def sdpa_bwd_call(q, k, v, mask, dropout):
     leaves = [t.requires_grad_() for t in (q4, k4, v4)]
     out = torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
                                                            dropout_p=dropout)
-    dout = torch.randn_like(out)
+    dout = randn_like(out, 41)
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
@@ -418,7 +436,7 @@ def phase_kernel_vs_plain():
     for i, (label, rows, lq, lk, masked) in enumerate(cases[:3]):
         rows = M * K_TRAIN * B_DRIVER if lq == lk == NS else rows
         q, k, v, mask = attention_inputs(rows, lq, lk, masked, seed=200 + i, full_row=masked)
-        dout = torch.randn_like(q)
+        dout = randn_like(q, 300 + i)
         for rate, seed in ((0.0, None), (DROPOUT, 2000 + i)):
             want = attention.attention_backward_reference(q, k, v, mask, dout, HEADS, rate,
                                                            seed)
@@ -778,7 +796,7 @@ def phase_train_times(train, seed, sm_clock_mhz):
     one train step in each precision."""
     rows, chunk, dseed = M * K_TRAIN * B_TRAIN, 64, 5
     q, k, v, mask = attention_inputs(rows, NS, NS, True, seed=8, full_row=True)
-    dout = torch.randn_like(q)
+    dout = randn_like(q, 42)
     slices = chunk_slices(rows, chunk)
 
     def plain_fwd():
@@ -1066,6 +1084,206 @@ def phase_drivers(seed):
     return launches_a, serve_launches, med_rate, busy
 
 
+# -- evaluation ------------------------------------------------------------------
+
+def suite_chunk_prediction(chunk):
+    """K1 launches of one reconstruction-suite chunk: MMVAE.reconstruct
+    encodes both modalities and runs each decoder on M·K·chunk rows, then
+    the posterior means encode both modalities again."""
+    return (2 * sum(encoder_launches(m, chunk) for m in (0, 1))
+            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)))
+
+
+def sweep_chunk_prediction(chunk):
+    """K1 launches of one masking-sweep chunk: one MMVAE.reconstruct."""
+    return (sum(encoder_launches(m, chunk) for m in (0, 1))
+            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)))
+
+
+@contextlib.contextmanager
+def per_chunk_launches(record):
+    """Append (chunk size, K1 launches) for every chunk the harness runs:
+    batched_apply's chunk function wrapped to count around each call (the
+    chunk's outputs reach the host inside it, so its kernels have run)."""
+    real = harness.batched_apply
+
+    def counting(fn, data, chunk_size, *args, **kwargs):
+        def counted(*a):
+            before = attention.launches
+            out = fn(*a)
+            record.append((chunk_size, attention.launches - before))
+            return out
+        return real(counted, data, chunk_size, *args, **kwargs)
+
+    harness.batched_apply = counting
+    try:
+        yield
+    finally:
+        harness.batched_apply = real
+
+
+@contextlib.contextmanager
+def capture_attention(rows, lq, lk, store):
+    """Keep the inputs (q, k, v, mask) of the first routed attention call of
+    ``rows`` rows on an lq x lk grid, as the layers hand them to the kernel."""
+    real = layers.fused_attention
+
+    def capturing(q, k, v, mask, *args):
+        if not store and q.shape[:2] == (rows, lq) and k.shape[1] == lk:
+            store.extend((q, k, v, mask))
+        return real(q, k, v, mask, *args)
+
+    layers.fused_attention = capturing
+    try:
+        yield
+    finally:
+        layers.fused_attention = real
+
+
+def eval_gates(label, got, ref_path, failures):
+    """Per phase bucket: MSE within 5% relative, the bin-averaged coverage
+    within 0.02 absolute, the bin-averaged width within 5% relative, of the
+    JAX package's results for the same checkpoint and data."""
+    ref = np.load(ref_path)
+    rows = [("mse", got["mm_mse"], ref["mm_mse"], "rel", 0.05),
+            ("coverage", np.nanmean(got["mm_coverage_mean"], 1),
+             np.nanmean(ref["mm_coverage_mean"], 1), "abs", 0.02),
+            ("width", np.nanmean(got["mm_width_mean"], 1), np.nanmean(ref["mm_width_mean"], 1),
+             "rel", 0.05)]
+    for name, port, jax_value, kind, tol in rows:
+        diff = np.abs(port - jax_value) / (np.abs(jax_value) if kind == "rel" else 1.0)
+        log(11, f"{label} {name} per phase (-10, 0, 10, 20, 30 d): port "
+                f"{np.array2string(port, precision=6)}, JAX "
+                f"{np.array2string(jax_value, precision=6)}, "
+                f"{'relative' if kind == 'rel' else 'absolute'} difference "
+                f"{np.array2string(diff, precision=4)} (gate {tol})")
+        if not (np.isfinite(diff).all() and (diff <= tol).all()):
+            failures.append((label, name, diff.tolist()))
+
+
+def phase_evaluation(seed):
+    """Phase 11: the evaluation drivers on the bridged flagship checkpoint.
+    Returns the K1 launches of (a)-(c) and K1's time on (e)'s input."""
+    t_phase = time.perf_counter()
+    out = os.path.join(SMOKE_DIR, "eval")
+    shutil.rmtree(out, ignore_errors=True)
+    record, store, failures = [], [], []
+    rows = M * K_EVAL * SUITE_CHUNK
+    reset_counts()
+    with per_chunk_launches(record), capture_attention(rows, NS, NS, store):
+        t0 = time.perf_counter()
+        metrics = eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
+                                       f"out={os.path.join(out, 'latent')}"])
+        t_first = time.perf_counter() - t0
+        predictive = eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}", "predictive=1",
+                                          f"out={os.path.join(out, 'predictive')}"])
+        mses = eval_masking.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
+                                  f"out={os.path.join(out, 'masking')}"])
+    totals = dict(zip(COUNTERS, kernel_counts()))
+    log(11, f"main path (evaluation: eval_goldstein twice, eval_masking): launches {totals}; "
+            f"the first eval_goldstein call took {t_first:.2f} s")
+    assert totals["K1"] > 0 and all(v == 0 for k, v in totals.items() if k != "K1"), totals
+
+    # (a), (b), (c): against the JAX package's results for this checkpoint
+    eval_gates("(a) eval_goldstein K=100", metrics, EVAL_REF["latent"], failures)
+    eval_gates("(b) eval_goldstein K=100 predictive=1", predictive, EVAL_REF["predictive"],
+               failures)
+    ref = np.load(SWEEP_REF)
+    port = np.array([mses[float(p)] for p in ref["portions"]])
+    diff = np.abs(port - ref["mse"]) / ref["mse"]
+    log(11, f"(c) eval_masking K=100 MSE at {np.array2string(ref['portions'])} masked: port "
+            f"{np.array2string(port, precision=6)}, JAX {np.array2string(ref['mse'], precision=6)}"
+            f", relative difference {np.array2string(diff, precision=4)} (gate 0.05)")
+    if not (diff <= 0.05).all():
+        failures.append(("(c) masking", "mse", diff.tolist()))
+
+    # (d) launches per chunk against the dispatch rule
+    suite = [n for size, n in record if size == SUITE_CHUNK]
+    sweep = [n for size, n in record if size == SWEEP_CHUNK]
+    want_suite = suite_chunk_prediction(SUITE_CHUNK)
+    want_sweep = sweep_chunk_prediction(SWEEP_CHUNK)
+    log(11, f"(d) K1 launches per suite chunk (R = {rows}) {sorted(set(suite))} over {len(suite)} "
+            f"chunks (predicted {want_suite}); per sweep chunk (R = {M * K_EVAL * SWEEP_CHUNK}) "
+            f"{sorted(set(sweep))} over {len(sweep)} chunks (predicted {want_sweep})")
+    data = resolve_dataset(None)
+    n_test = len(data["testing_idx"])
+    assert len(suite) == 2 * -(-n_test // SUITE_CHUNK), len(suite)
+    assert len(sweep) == 6 * -(-n_test // SWEEP_CHUNK), len(sweep)
+    assert set(suite) == {want_suite} and set(sweep) == {want_sweep}, (suite, sweep)
+    assert totals["K1"] == sum(suite) + sum(sweep)
+
+    # (e) K1 on the captured R = 12,800 decoder input against its plain
+    # version on its first and last rows (all rows' logits would be ~197 GB)
+    q, k, v, mask = store
+    del store[:]
+    with torch.inference_mode():
+        kernel = attention.fused_attention(q, k, v, mask, HEADS)
+        torch.cuda.synchronize()
+        errs = []
+        for part in (slice(0, 64), slice(rows - 64, rows)):
+            plain = attention.attention_reference(q[part], k[part], v[part], mask[part], HEADS)
+            errs.append((kernel[part] - plain).abs().max().item())
+        ms = time_ms(lambda: attention.fused_attention(q, k, v, mask, HEADS), reps=5, warmup=1)
+    bound_ms, by = attention_bound(rows, NS, NS, torch.float32, True)
+    log(11, f"(e) K1 on the suite's first 982x982 decoder input [{rows}, {NS}, {MODEL_DIM}] "
+            f"fp32 ({mask.float().mean().item():.1%} of keys masked): rows 0-63 max-abs "
+            f"{errs[0]:.3e}, rows {rows - 64}-{rows - 1} {errs[1]:.3e} against the plain version "
+            f"(gate 1e-5); {ms:.3f} ms a launch, bound {bound_ms:.3f} ms ({by}), "
+            f"{bound_ms / ms:.1%} of it")
+    assert all(np.isfinite(e) and e <= 1e-5 for e in errs), errs
+    del q, k, v, mask, kernel
+    torch.cuda.empty_cache()
+
+    # (f) the harness on the card against the CPU, bridged weights, pinned noise
+    idx = np.asarray(data["testing_idx"])[:8]
+    batch = tuple(tuple(t.numpy() for t in m) for m in multimodal_tuple(data, idx, "cpu"))
+    model = eval_goldstein._restore(EVAL_CKPT, train_photospectra.build_model(
+        eval_goldstein._config_for(EVAL_CKPT, PhotoSpectraMMVAEConfig)))
+    with pinned_noise(seed):
+        card = harness.mmvae_reconstruction_suite(model, batch, K=4, chunk_size=8, device="cuda")
+        cpu = harness.mmvae_reconstruction_suite(copy.deepcopy(model).cpu(), batch, K=4,
+                                                 chunk_size=8, device="cpu")
+    rel = {key: np.abs(card[key] - cpu[key]).max() / np.abs(cpu[key]).max() for key in cpu}
+    log(11, "(f) harness card vs CPU, 8 events, K = 4, pinned noise, max-abs over max |CPU|: "
+            + ", ".join(f"{key} {r:.3e}" for key, r in rel.items()) + " (gate 1e-4)")
+    assert card.keys() == cpu.keys() and all(r <= 1e-4 for r in rel.values()), rel
+
+    # (g) eval_goldstein end to end after the warm call (a), peak memory, a
+    # profile of one suite chunk
+    spent = []
+    suite_fn = eval_goldstein.mmvae_reconstruction_suite
+
+    def timed_suite(*args, **kwargs):
+        t = time.perf_counter()
+        result = suite_fn(*args, **kwargs)
+        spent.append(time.perf_counter() - t)
+        return result
+
+    eval_goldstein.mmvae_reconstruction_suite = timed_suite
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
+                             f"out={os.path.join(out, 'timed')}"])
+        wall = time.perf_counter() - t0
+    finally:
+        eval_goldstein.mmvae_reconstruction_suite = suite_fn
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(11, f"(g) eval_goldstein K={K_EVAL} on {n_test} test events: wall {wall:.3f} s, "
+            f"{n_test / wall:.1f} events/s, the harness {spent[0]:.3f} s ({spent[0] / wall:.1%} "
+            f"of the wall); peak device memory {peak:.0f} MiB")
+    first = tuple(tuple(a[:SUITE_CHUNK] for a in m) for m in multimodal_tuple(
+        data, np.asarray(data["testing_idx"]), "cpu"))
+    busy = profile_calls(lambda: harness.mmvae_reconstruction_suite(
+        model, first, K=K_EVAL, chunk_size=SUITE_CHUNK), f"one suite chunk ({SUITE_CHUNK} events, "
+        f"K = {K_EVAL}, R = {rows})", n=1, top=10, phase=11)
+    log(11, f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    assert not failures, failures
+    return totals["K1"], dict(ms=ms, bound=bound_ms, by=by, wall=wall, events_s=n_test / wall,
+                              peak=peak, busy=busy)
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -1176,6 +1394,11 @@ def main(argv=None):
     log(10, f"flagship driver (B = {B_DRIVER}, K = {K_TRAIN}, dropout {DROPOUT}, fp32): median "
             f"{rate:.1f} samples/s over epochs 2-{DRIVER_EPOCHS}; device busy {busy:.1%} of a "
             f"profiled epoch; on {smi}")
+    torch.cuda.empty_cache()
+    eval_launches, ev = phase_evaluation(args.seed)
+    log(11, f"eval_goldstein (K = {K_EVAL}, fp32): {ev['events_s']:.1f} events/s, wall "
+            f"{ev['wall']:.3f} s, peak memory {ev['peak']:.0f} MiB, device busy {ev['busy']:.1%} "
+            f"of a profiled suite chunk; on {smi}")
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -1189,7 +1412,8 @@ def main(argv=None):
     rows = [
         ("attention_fwd", "cuda", attn_src.format("fwd"), "vaesne_tpu/ops/attention.py:304",
          serving_launches, errs["attention_fwd"], ms, plain, (bound_ms, by), lib, ms16, lib16,
-         drivers_serving),
+         drivers_serving, {"launches_eval": eval_launches, "ms_eval": ev["ms"],
+                           "bound_ms_eval": ev["bound"]}),
         ("attention_fwd_dropout", "cuda", attn_src.format("fwd"),
          "vaesne_tpu/ops/attention.py:304", train_launches["K1 rate>0"],
          errs["attention_fwd_dropout"], f32["fwd"], t["plain_f"], f32["b_f"], f32["lib_f"],
@@ -1206,7 +1430,9 @@ def main(argv=None):
     ]
     # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
     # inputs; launches_drivers counts phase 10's path (K1 at rate 0: the
-    # from_checkpoint serving). The Laplace rows are at the step's [2, 192]
+    # from_checkpoint serving), launches_eval phase 11's, with K1's fp32 time
+    # and bound on its R = 12,800 decoder input (ms_eval, bound_ms_eval). The
+    # Laplace rows are at the step's [2, 192]
     # slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -1223,7 +1449,7 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
-             **laplace_extra.get(r[0], {}))
+             **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,13 @@ def _inputs(device, R, H, Dh, Lq, Lk, masked, seed=0):
     return q, k, v, mask
 
 
+def _randn_like(t, seed):
+    """Standard normal draws of ``t``'s shape on its device from their own
+    generator: the inputs of a test do not depend on the tests before it."""
+    g = torch.Generator(t.device).manual_seed(seed)
+    return torch.randn(t.shape, device=t.device, dtype=t.dtype, generator=g)
+
+
 def _rel(got, want, floor=1e-6):
     """max |got − want| over max |want|, or over ``floor`` where that is
     larger."""
@@ -116,7 +123,7 @@ def test_dropout_forward_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
 def test_backward_matches_autograd_of_plain_version(cuda, R, H, Dh, Lq, Lk, masked, rate):
     """K2 (dq, dk, dv) and K1's statistics against the plain versions."""
     q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked, seed=2)
-    dout = torch.randn_like(q)
+    dout = _randn_like(q, seed=12)
     seed = 11 if rate > 0 else None
     want = attention.attention_backward_reference(q, k, v, mask, dout, H, rate, seed)
     m_ref, l_ref = attention.attention_stats_reference(q, k, mask, H)
@@ -149,7 +156,7 @@ def test_kernels_are_deterministic(cuda, dtype):
     sum in a fixed order)."""
     q, k, v, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
                      for t in _inputs(cuda, 4, 4, 8, 982, 982, True, seed=4))
-    dout = torch.randn_like(q)
+    dout = _randn_like(q, seed=14)
     runs = []
     for _ in range(2):
         out, m, l = attention.fused_attention_fwd(q, k, v, mask, 4, 0.1, 21)
@@ -164,7 +171,7 @@ def test_misaligned_views_match_aligned_inputs(cuda):
     """A view whose data starts 4 bytes past a 16-byte boundary gives the
     kernels' results on the aligned tensor, bit for bit."""
     q, k, v, mask = _inputs(cuda, 2, 4, 8, 70, 90, True, seed=5)
-    dout = torch.randn_like(q)
+    dout = _randn_like(q, seed=15)
 
     def shifted(t):
         view = torch.empty(t.numel() + 1, device=cuda, dtype=t.dtype)[1:].view_as(t)
@@ -337,8 +344,9 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     for t in (q, k, v):
         t.requires_grad_()
     attention.fused_attention(q, k, v, mask, 4, 0.1, 3).sum().backward()
-    loc = torch.randn(4, 200, device=cuda, requires_grad=True)
-    laplace.masked_laplace_loglik(loc, torch.randn(2, 200, device=cuda),
+    g = torch.Generator(cuda).manual_seed(6)
+    loc = torch.randn(4, 200, device=cuda, generator=g).requires_grad_()
+    laplace.masked_laplace_loglik(loc, torch.randn(2, 200, device=cuda, generator=g),
                                   torch.zeros(4, 200, dtype=torch.bool, device=cuda),
                                   1e10).sum().backward()
     torch.cuda.synchronize()
@@ -359,7 +367,7 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
 
 def test_routed_dropout_launches_the_kernel(cuda):
     mha = MultiHeadAttention(32, 4, dropout=0.1).to(cuda).train()
-    x = torch.randn(1, 256, 32, device=cuda)
+    x = torch.randn(1, 256, 32, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
     with pytest.raises(ValueError, match="seed"):
         mha(x, x, x)
     before = attention.dropout_launches
@@ -433,10 +441,12 @@ def test_train_step_gradients_repeat_bitwise(cuda):
     model = init_params(PhotoSpecMMVAE([PhotometricVAE(num_bands=6, **kw), SpectraVAE(**kw)]),
                         torch.Generator().manual_seed(0)).to(cuda).train()
     rng = np.random.default_rng(0)
-    photo = (torch.randn(16, 60), torch.rand(16, 60),
-             torch.from_numpy(rng.integers(0, 6, (16, 60))), torch.rand(16, 60) < 0.2)
-    spec = (torch.randn(16, 982), torch.linspace(-1, 1, 982).repeat(16, 1), torch.randn(16),
-            torch.rand(16, 982) < 0.2)
+    g = torch.Generator().manual_seed(9)
+    photo = (torch.randn(16, 60, generator=g), torch.rand(16, 60, generator=g),
+             torch.from_numpy(rng.integers(0, 6, (16, 60))),
+             torch.rand(16, 60, generator=g) < 0.2)
+    spec = (torch.randn(16, 982, generator=g), torch.linspace(-1, 1, 982).repeat(16, 1),
+            torch.randn(16, generator=g), torch.rand(16, 982, generator=g) < 0.2)
     batch = tuple(tuple(t.to(cuda) for t in m) for m in (photo, spec))
     grads = []
     for _ in range(2):

@@ -247,7 +247,7 @@ def _loop(tmp_path, **kw):
 
 @pytest.mark.parametrize("spec", ["4", "2x2", "8x1"])
 def test_a_multi_device_mesh_raises(tmp_path, spec):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         _loop(tmp_path, argv=[f"train.mesh={spec}"])
 
 

@@ -1,10 +1,15 @@
 """Shared helpers of the PyTorch port's parity tests: a flax parameter tree
 filled with the torch model's weights, the numpy batches both packages
-take, and pinned posterior noise.
+take, pinned posterior noise, and the bridge of a JAX (Orbax) checkpoint
+into a port checkpoint.
 
 The two frameworks draw different random numbers, so sampling is pinned:
 ``fixed_noise`` replaces the Laplace sampler of both packages with one that
 adds the same numpy noise (a function of the draw's shape) to loc."""
+
+import importlib
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +21,7 @@ import vaesne_tpu.distributions as jdist
 import vaesne_tpu.models as jmodels
 import vaesne_tpu_torch.distributions as tdist
 import vaesne_tpu_torch.models as tmodels
-from vaesne_tpu_torch.utils import init_params
+from vaesne_tpu_torch.utils import init_params, load_jax_params
 from vaesne_tpu_torch.utils.weights import torch_key
 
 SMALL = dict(latent_len=2, latent_dim=2, model_dim=16, ff_dim=16, num_layers=1, num_heads=2)
@@ -93,3 +98,60 @@ def fixed_noise(monkeypatch):
 
     monkeypatch.setattr(jdist.Laplace, "sample", jax_sample)
     monkeypatch.setattr(tdist.Laplace, "sample", torch_sample)
+
+
+# a checkpoint's config class → (the driver module that builds its model in
+# either package, its data kind, its tuple builder)
+_EXPORTABLE = {
+    "PhotoSpectraMMVAEConfig": ("train_photospectra", "goldstein", "multimodal_tuple"),
+    "ZTFMMVAEConfig": ("train_ztf_photospect", "ztf", "multimodal_tuple"),
+    "SpectraVAEConfig": ("train_spectra", "goldstein", "spectra_tuple"),
+    "ZTFSpectraConfig": ("train_ztf_spectra", "ztf", "spectra_tuple"),
+    "PhotometryVAEConfig": ("train_photometry", "goldstein", "photometry_tuple"),
+}
+
+
+def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConfig"):
+    """Bridge the JAX package's checkpoint at ``jax_dir`` (its Orbax
+    ``state/`` and ``config.json``) into a port checkpoint at ``out_dir``:
+    ``config.json`` tagged with its config class and a ``state.pt`` of the
+    parameters alone (``save_params``), which ``restore_params`` and
+    ``InferenceServer.from_checkpoint`` read and ``restore_checkpoint``
+    refuses (the AdamW moments are not bridged). The config class is the
+    checkpoint's ``_config_class`` tag, else ``config_class``. The JAX
+    state is restored into an abstract template, so nothing is compiled."""
+    import vaesne_tpu.data as jdata
+    import vaesne_tpu.utils.checkpoint as jck
+    import vaesne_tpu.utils.config as jcfg
+    from vaesne_tpu import training as jtr
+    from vaesne_tpu.experiments.common import optimizer_from_config
+    from vaesne_tpu_torch.utils import checkpoint as tck
+    from vaesne_tpu_torch.utils import config as tcfg
+
+    name = (jck.load_config(jax_dir) or {}).get("_config_class", config_class)
+    driver, kind, builder = _EXPORTABLE[name]
+    jc = jck.restore_config(jax_dir, jcfg.CONFIG_CLASSES[name])
+    jmodel = importlib.import_module(f"vaesne_tpu.experiments.{driver}").build_model(jc)
+    maker = jdata.make_goldstein_like if kind == "goldstein" else jdata.make_ztf_like
+    example = getattr(jdata, builder)(maker(n=8, seed=0), idx=np.arange(2))
+    key = jax.random.PRNGKey(0)
+    one_device = jax.sharding.SingleDeviceSharding(jax.devices()[0])
+    template = jax.tree_util.tree_map(
+        lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=one_device),
+        jax.eval_shape(lambda: jtr.TrainState.create(
+            jtr.init_model(jmodel, example, key, K=1), optimizer_from_config(jc.train), key)))
+    params = jck.restore_checkpoint(jax_dir, template).params
+
+    tc = tck.restore_config(jax_dir, tcfg.CONFIG_CLASSES[name])
+    model = importlib.import_module(f"vaesne_tpu_torch.experiments.{driver}").build_model(tc)
+    load_jax_params(model, {"params": jax.tree_util.tree_map(np.asarray, params)})
+    config = tcfg.asdict(tc)
+    config["_config_class"] = name
+    tck.save_params(out_dir, model, config)
+    return model
+
+
+if __name__ == "__main__":
+    # PYTHONPATH=. python tests/torch_parity.py <JAX checkpoint> <port checkpoint> [class]
+    export_port_checkpoint(*sys.argv[1:])
+    print(f"wrote {os.path.join(sys.argv[2], 'state.pt')}")

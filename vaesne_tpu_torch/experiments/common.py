@@ -51,8 +51,8 @@ from ..utils.plotting import plot_loss_curve
 from ..utils.rng import device_generator, fold_in
 from ..utils.weights import init_params
 
-# the mesh specs that mean one device; multi-device training is Queue 1
-# item 12 of ROADMAP.md
+# the mesh specs that mean one device; multi-GPU is Queue 1 item 6 of
+# ROADMAP.md
 SINGLE_DEVICE_MESHES = ("auto", "none", "1")
 
 
@@ -99,11 +99,13 @@ def optimizer_from_config(train_cfg):
 
 
 def _check_single_device(spec) -> None:
+    """Raise unless the mesh spec (``train.mesh``, or an eval driver's
+    ``mesh=``) names one device."""
     if str(spec).strip().lower() not in SINGLE_DEVICE_MESHES:
         raise NotImplementedError(
-            f"train.mesh={spec!r} asks for several devices; the PyTorch port trains on "
-            f"one card (mesh 'auto', 'none' or '1') until multi-GPU training lands "
-            f"(ROADMAP.md Queue 1 item 12)")
+            f"mesh={spec!r} asks for several devices; the PyTorch port runs on one "
+            f"card (mesh 'auto', 'none' or '1') until multi-GPU support lands "
+            f"(ROADMAP.md Queue 1 item 6)")
 
 
 def _epoch_seeds(seed: int, epoch: int):
@@ -179,7 +181,7 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     if opt_mask is not None:
         raise NotImplementedError(
             "opt_mask (a frozen parameter subset) comes with the regression drivers "
-            "(ROADMAP.md Queue 1 item 11)")
+            "(ROADMAP.md Queue 1 item 4)")
     seed = train_cfg.seed
     init_params(model, torch.Generator().manual_seed(fold_in(seed, 0)))
     if install_params:

@@ -9,7 +9,9 @@ layout of the JAX package beside one file of its own:
   progress.json   epochs done      }  experiments.common.train_loop
   state.pt        ``TrainState.state_dict()`` (parameters, AdamW moments,
                   step, the step generator's state) in one ``torch.save``
-                  file, written to a temporary name and then renamed
+                  file, written to a temporary name and then renamed; or,
+                  from ``save_params``, the parameters alone, which can be
+                  served and evaluated but not resumed
 
 The JAX package keeps its state in an Orbax ``state/`` directory instead.
 The port reads no such directory and writes into none: restoring from one,
@@ -74,19 +76,32 @@ def check_format(path: str) -> None:
             f"train.ckpt_dir or checkpoint name.")
 
 
-def save_checkpoint(path: str, state: TrainState,
-                    config: Optional[Dict[str, Any]] = None) -> None:
-    """Save the whole train state (and the config as JSON) into the
-    directory ``path``."""
+def _save(path: str, state: Dict[str, Any], config: Optional[Dict[str, Any]]) -> None:
     path = os.path.abspath(path)
     check_format(path)
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(state.state_dict(), tmp)
+    torch.save(state, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
     if config is not None:
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(config, f, indent=2, default=str)
+
+
+def save_checkpoint(path: str, state: TrainState,
+                    config: Optional[Dict[str, Any]] = None) -> None:
+    """Save the whole train state (and the config as JSON) into the
+    directory ``path``."""
+    _save(path, state.state_dict(), config)
+
+
+def save_params(path: str, model: nn.Module,
+                config: Optional[Dict[str, Any]] = None) -> None:
+    """Save ``model``'s parameters alone (and the config as JSON) into the
+    directory ``path``: what a JAX checkpoint's bridged parameters become.
+    ``restore_params`` and ``InferenceServer.from_checkpoint`` read it;
+    ``restore_checkpoint`` refuses it, as it holds no optimizer state."""
+    _save(path, {"model": model.state_dict()}, config)
 
 
 def _load(path: str) -> Dict[str, Any]:
@@ -125,6 +140,11 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     optimizer built as for the run that saved it) and return it. A
     mismatch says whether the architecture or the optimizer differs."""
     saved = _load(path)
+    if "optimizer" not in saved:
+        raise ValueError(
+            f"checkpoint at {path!r} holds parameters only (no AdamW moments, step or "
+            f"generator state): serve or evaluate it through restore_params, but a run "
+            f"cannot resume from it")
     _check_architecture(path, saved["model"], state.model)
     try:
         state.load_state_dict(saved)
