@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, training and evaluation paths on one
-CUDA card and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths, and
+the image VAE's, on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -48,7 +48,20 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      directory, crossmodal_ci on 32 held-out events equal bitwise to a
      server over (a)'s model; (d) one epoch of each other driver; (e) the
      driver's samples/s per epoch of (a), and a profile of one epoch of
-     the driver resumed from (a)'s checkpoint.
+     the driver resumed from (a)'s checkpoint;
+ 11. the evaluation drivers on the bridged flagship checkpoint, held
+     against the JAX package's K = 100 results (artifacts/eval*/);
+ 12. the host-galaxy image VAE (ImageVAEConfig: 60x60x3, patch 2, the
+     hybrid decoder): (a) K1 at rate 0 and 0.1 and K2 against their plain
+     versions on its unmasked grids (900x900, 3,600x3,600, 400x400) and
+     K1's keep rate at 900x900; (b) the bridged synthetic_image_4-4_patch2
+     checkpoint's reconstruction on the card against the JAX package's
+     and against the port on the CPU; (c) train_image.main for 2 epochs,
+     then one epoch of the per-pixel decoder and of the MNIST config,
+     every epoch's launches checked, samples/s, peak memory, a
+     kill-and-resume bitwise equal to the 2 epochs, and a profile of one
+     step; (d) try_models model=image at K = 100; (e) the kernels' device
+     times and bounds at the image grids.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -86,20 +99,22 @@ from vaesne_tpu_torch import (
     make_train_step,
     objectives,
 )
-from vaesne_tpu_torch.data import multimodal_tuple
+from vaesne_tpu_torch.data import image_tuple, make_images, multimodal_tuple
 from vaesne_tpu_torch.experiments import (
     eval_goldstein,
     eval_masking,
+    train_image,
     train_photometry,
     train_photospectra,
     train_spectra,
     train_ztf_photospect,
     train_ztf_spectra,
+    try_models,
 )
-from vaesne_tpu_torch.experiments.common import resolve_dataset
+from vaesne_tpu_torch.experiments.common import optimizer_from_config, resolve_dataset
 from vaesne_tpu_torch.ops import _build, laplace_routes_to_kernel, routes_to_kernel
 from vaesne_tpu_torch.training import to_device
-from vaesne_tpu_torch.utils.config import PhotoSpectraMMVAEConfig
+from vaesne_tpu_torch.utils.config import ImageVAEConfig, PhotoSpectraMMVAEConfig
 
 # the flagship model (vaesne_tpu/experiments/train_photospectra.py, bench.py)
 NUM_BANDS, LATENT_LEN, LATENT_DIM = 6, 4, 4
@@ -121,6 +136,16 @@ EVAL_REF = {"latent": os.path.join("artifacts", "eval", "avg_metrics.npz"),
             "predictive": os.path.join("artifacts", "eval_predictive", "avg_metrics.npz")}
 SWEEP_REF = os.path.join("artifacts", "eval", "masking_sweep.npz")
 K_EVAL, SUITE_CHUNK, SWEEP_CHUNK = 100, 64, 32
+# phase 12: the image VAE (ImageVAEConfig: 60x60x3, patch 2, the hybrid
+# decoder, latent 4x4, model_dim 32, 4 heads, 4 layers, B = 32, K = 1);
+# its decoders' self-attention grids: 900 patch tokens (patch 2), 3,600
+# pixels (hybrid=False), 400 patch tokens (the MNIST config's patch 3)
+IMG = 60
+IMAGE_TOKENS, PIXEL_TOKENS, MNIST_TOKENS = (IMG // 2) ** 2, IMG * IMG, (IMG // 3) ** 2
+B_IMAGE, IMAGE_EPOCHS, N_IMAGES = 32, 2, 512
+K_TRY, N_TRY = 100, 4
+IMAGE_CKPT = os.path.join("artifacts", "ckpt_torch", "synthetic_image_4-4_patch2")
+IMAGE_REF = os.path.join(IMAGE_CKPT, "jax_reconstruction.npy")
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, fp32
 # FMA-pipe flop/s, bf16 tensor-core flop/s
@@ -303,6 +328,8 @@ def _sdpa_operands(q, k, v, mask):
     r, _, e = q.shape
     dh = e // HEADS
     q4, k4, v4 = (t.view(r, -1, HEADS, dh).transpose(1, 2).contiguous() for t in (q, k, v))
+    if mask is None:
+        return q4, k4, v4, None
     bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device).masked_fill(mask, -1e9)
     return q4, k4, v4, bias[:, None, None, :]
 
@@ -496,18 +523,18 @@ def phase_kernel_vs_plain():
     return worst
 
 
-def keep_rate_check():
-    """K1's measured keep rate: with q = 0 every weight is 1/Lk, and with
-    v = 1 each output is (#kept/Lk)/(1 − rate); over 31M draws it must be
-    230/256 (the 8-bit threshold) within 4σ."""
-    rows = 8
-    q = torch.zeros(rows, NS, MODEL_DIM, device="cuda")
+def keep_rate_check(rows=8, length=NS, phase=3):
+    """K1's measured keep rate on a length x length grid: with q = 0 every
+    weight is 1/Lk, and with v = 1 each output is (#kept/Lk)/(1 − rate);
+    over rows·H·L² draws (31M at phase 3's 982²) it must be 230/256 (the
+    8-bit threshold) within 4σ."""
+    q = torch.zeros(rows, length, MODEL_DIM, device="cuda")
     out = attention.fused_attention(q, q, torch.ones_like(q), None, HEADS, DROPOUT, 99)
     keep = out.double().mean().item() * (1.0 - DROPOUT)
-    p, n = 230 / 256, rows * HEADS * NS * NS
+    p, n = 230 / 256, rows * HEADS * length * length
     sigma = (p * (1 - p) / n) ** 0.5
-    log(3, f"attention_fwd keep rate over {n} draws: {keep:.6f} (expected {p:.6f}, "
-           f"{abs(keep - p) / sigma:.2f} sigma)")
+    log(phase, f"attention_fwd keep rate over {n} draws ({length}x{length}): {keep:.6f} "
+               f"(expected {p:.6f}, {abs(keep - p) / sigma:.2f} sigma)")
     assert abs(keep - p) <= 4 * sigma, keep
 
 
@@ -1284,6 +1311,392 @@ def phase_evaluation(seed):
                               peak=peak, busy=busy)
 
 
+# -- the image VAE -----------------------------------------------------------------
+
+# (label, rows, grid length) of phase 12(a): the hybrid decoder's 900
+# patch tokens, the per-pixel decoder's 3,600 and the MNIST config's 400,
+# each at the train step's R = 32
+IMAGE_GRIDS = [("hybrid", B_IMAGE, IMAGE_TOKENS), ("pixel", B_IMAGE, PIXEL_TOKENS),
+               ("mnist", B_IMAGE, MNIST_TOKENS)]
+REF_ROWS = 8  # rows per call of the plain versions in phase 12 (3,600² logits: 1.7 GB)
+
+
+def by_rows(plain, tensors, seed, rows=REF_ROWS):
+    """``plain(*chunk, seed)`` (a plain version over [R, ...] inputs) on
+    ``rows`` rows at a time, the outputs concatenated along R. Row r's
+    dropout mask is keyed by seed + (r·H + h)·1024 (ops/attention.py::
+    dropout_keep), so the chunk from row r0 takes seed + r0·H·1024 and the
+    result equals one call over all rows."""
+    parts = []
+    for r0 in range(0, tensors[0].shape[0], rows):
+        s = None if seed is None else seed + r0 * HEADS * 1024
+        out = plain(*(t[r0:r0 + rows] for t in tensors), s)
+        parts.append(out if isinstance(out, (tuple, list)) else (out,))
+    outs = [torch.cat(p) for p in zip(*parts)]
+    return outs if len(outs) > 1 else outs[0]
+
+
+def image_stack_launches(rows, lq, lk_context):
+    """K1 launches of one image TransformerStack: per layer a self-attention
+    (lq x lq, unmasked) and a cross-attention (lq x lk_context)."""
+    return LAYERS * (int(routes_to_kernel(rows, HEADS, lq, lq))
+                     + int(routes_to_kernel(rows, HEADS, lq, lk_context)))
+
+
+def image_tokens(cfg):
+    """(decoder queries, encoder context tokens) of an ImageVAEConfig."""
+    patches = (cfg.img_size // cfg.patch_size) ** 2
+    return (patches if cfg.hybrid else cfg.img_size ** 2), patches + 2 * cfg.focal_loc
+
+
+def image_forward_launches(cfg, rows, K):
+    """K1 launches of one HostImgVAE forward on ``rows`` images: the encoder's
+    2·latent_len bottleneck queries over the patch tokens on B rows, the
+    decoder's queries over the latent tokens on K·B rows."""
+    dec, ctx = image_tokens(cfg)
+    return (image_stack_launches(rows, 2 * LATENT_LEN, ctx)
+            + image_stack_launches(K * rows, dec, LATENT_LEN))
+
+
+def image_step_prediction(cfg):
+    """Launches per train_image step (COUNTERS order): the whole forward in
+    train mode (dropout 0.1), so every routed grid launches K1 at rate 0.1
+    in the forward and again in remat's re-run, and K2 once; a plain
+    Laplace likelihood, so no K3 or K4."""
+    n = image_forward_launches(cfg, cfg.train.batch_size, cfg.train.K)
+    return (2 * n, 2 * n, n, 0, 0)
+
+
+def phase_image_kernels():
+    """Phase 12(a): K1 at rate 0 and 0.1 and K2 at rate 0.1 on the image
+    grids at R = 32, unmasked, against their plain versions (by_rows) with
+    phase 3's gates; K1's keep rate at 900x900. Returns the worst fp32
+    errors."""
+    worst = dict.fromkeys(("attention_fwd", "attention_fwd_dropout", "attention_bwd"), 0.0)
+    for i, (label, rows, n) in enumerate(IMAGE_GRIDS):
+        q, k, v, _ = attention_inputs(rows, n, n, False, seed=500 + i)
+        dout = randn_like(q, 600 + i)
+        for rate, seed, name in ((0.0, None, "attention_fwd"),
+                                 (DROPOUT, 5000 + i, "attention_fwd_dropout")):
+            ref = by_rows(lambda q_, k_, v_, s: attention.attention_reference(
+                q_, k_, v_, None, HEADS, rate, s), (q, k, v), seed)
+            out = attention.fused_attention(q, k, v, None, HEADS, rate, seed)
+            out16 = attention.fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), None,
+                                              HEADS, rate, seed)
+            torch.cuda.synchronize()
+            err32, err16 = (out - ref).abs().max().item(), _rel(out16, ref)
+            log(12, f"(a) attention_fwd rate {rate} R={rows} {n}x{n} ({label}): fp32 max-abs "
+                    f"{err32:.3e}, bf16 rel {err16:.3e}")
+            assert np.isfinite(err32) and err32 <= 1e-5, (label, rate, err32)
+            assert np.isfinite(err16) and err16 <= 2e-2, (label, rate, err16)
+            worst[name] = max(worst[name], err32)
+            del ref, out, out16
+        want = by_rows(lambda q_, k_, v_, d_, s: attention.attention_backward_reference(
+            q_, k_, v_, None, d_, HEADS, DROPOUT, s), (q, k, v, dout), 7000 + i)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            out, m, l = attention.fused_attention_fwd(qd, kd, vd, None, HEADS, DROPOUT, 7000 + i)
+            grads = attention.fused_attention_bwd(qd, kd, vd, None, out, m, l, dout.to(dtype),
+                                                  HEADS, DROPOUT, 7000 + i)
+            torch.cuda.synchronize()
+            errs[dtype] = [_rel(g, w) for g, w in zip(grads, want)]
+            if dtype == torch.float32:
+                worst["attention_bwd"] = max(worst["attention_bwd"], *(
+                    (g - w).abs().max().item() for g, w in zip(grads, want)))
+        log(12, f"(a) attention_bwd rate {DROPOUT} R={rows} {n}x{n} ({label}): dq, dk, dv rel "
+                f"fp32 " + ", ".join(f"{e:.2e}" for e in errs[torch.float32]) + "; bf16 "
+                + ", ".join(f"{e:.2e}" for e in errs[torch.bfloat16]))
+        assert all(np.isfinite(e) and e <= 1e-4 for e in errs[torch.float32]), label
+        assert all(np.isfinite(e) and e <= 2e-2 for e in errs[torch.bfloat16]), label
+        del q, k, v, dout, want
+        torch.cuda.empty_cache()
+    keep_rate_check(rows=B_IMAGE, length=IMAGE_TOKENS, phase=12)
+    return worst
+
+
+def image_batch(n, seed=0, device="cuda"):
+    """``n`` synthetic 60x60x3 images as the model's input on ``device``."""
+    return image_tuple(make_images(n=n, img_size=IMG, seed=seed), device)
+
+
+def phase_image_checkpoint():
+    """Phase 12(b): the bridged synthetic_image_4-4_patch2 checkpoint's
+    posterior-mean reconstruction decode(encode(x)).loc of the 8 reference
+    images on the card (through K1) against the JAX package's
+    (artifacts/ckpt_torch/.../jax_reconstruction.npy) and against the port
+    on the CPU (the plain version): max-abs over max |reference| ≤ 1e-4."""
+    cfg = eval_goldstein._config_for(IMAGE_CKPT, ImageVAEConfig)
+    model = eval_goldstein._restore(IMAGE_CKPT, train_image.build_model(cfg)).eval()
+    ref = np.load(IMAGE_REF)
+    locs = {}
+    for device in ("cpu", "cuda"):
+        m = copy.deepcopy(model).to(device)
+        x = image_batch(ref.shape[0], device=device)
+        before = attention.launches
+        with torch.inference_mode():
+            locs[device] = m.decode(m.encode(x)[None], x).loc[0].cpu().numpy()
+        if device == "cuda":
+            launched = attention.launches - before
+            want = image_forward_launches(cfg, ref.shape[0], 1)
+            assert launched == want, (launched, want)
+    scale = np.abs(ref).max()
+    rel_jax = np.abs(locs["cuda"] - ref).max() / scale
+    rel_cpu = np.abs(locs["cuda"] - locs["cpu"]).max() / np.abs(locs["cpu"]).max()
+    rel_cpu_jax = np.abs(locs["cpu"] - ref).max() / scale
+    log(12, f"(b) {IMAGE_CKPT} reconstruction of {ref.shape[0]} images {ref.shape[1:]}, "
+            f"K1 launches {launched}: card vs JAX max-abs/max {rel_jax:.3e}, card vs CPU "
+            f"{rel_cpu:.3e}, CPU vs JAX {rel_cpu_jax:.3e} (gate 1e-4)")
+    assert rel_jax <= 1e-4 and rel_cpu <= 1e-4, (rel_jax, rel_cpu)
+
+
+def image_driver_args(seed, root, *extra):
+    return driver_args(seed, root, "train.save_every=1", *extra)
+
+
+def phase_image_training(seed):
+    """Phase 12(c): train_image.main at the defaults (synthetic 512 images,
+    B = 32: 16 steps an epoch) for IMAGE_EPOCHS epochs, each epoch's
+    launches against image_step_prediction; samples/s per epoch (host
+    clock from one epoch's end to the next, the save included); peak
+    memory; then one epoch of the per-pixel decoder and one of the MNIST
+    config; a run of one epoch resumed to IMAGE_EPOCHS, bitwise the first;
+    a profile of one step. Returns the launches of each run and the
+    numbers."""
+    root = os.path.join(SMOKE_DIR, "image")
+    shutil.rmtree(root, ignore_errors=True)
+    res = {}
+    for label, overrides, epochs in (("image", (), IMAGE_EPOCHS),
+                                     ("pixel", ("hybrid=false",), 1),
+                                     ("mnist", ("dataset=mnist",), 1)):
+        dataset, _, cfg = train_image.parse_image_cli(list(overrides))
+        per_step = image_step_prediction(cfg)
+        mark, epoch_s = {}, []
+
+        def on_epoch(epoch, state, loss):
+            now, counts = time.perf_counter(), kernel_counts()
+            steps = state.step - mark["step"]
+            got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+            log(12, f"(c) {label} epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
+                    f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}")
+            assert np.isfinite(loss) and got == tuple(steps * w for w in per_step), (got, steps)
+            epoch_s.append((now - mark["t"], steps))
+            mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+
+        log(12, f"(c) {label}: predicted launches per step {dict(zip(COUNTERS, per_step))}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+        state, losses = train_image.main(
+            [*overrides, *image_driver_args(seed, os.path.join(root, label),
+                                            f"train.epochs={epochs}")], callback=on_epoch)
+        launches = dict(zip(COUNTERS, kernel_counts()))
+        rates = [cfg.train.batch_size * n / t for t, n in epoch_s]
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(12, f"(c) {label} ({dataset}, {cfg.img_size}x{cfg.img_size}x{cfg.in_channels}, "
+                f"patch {cfg.patch_size}, hybrid {cfg.hybrid}): losses {losses}, launches "
+                f"{launches}; samples/s per epoch {', '.join(f'{r:.1f}' for r in rates)}; "
+                f"peak memory {peak:.0f} MiB")
+        assert all(launches[k] > 0 for k in ("K1 rate>0", "K1", "K2")), launches
+        if label == "image":
+            assert losses[-1] < losses[0], losses
+            res["state"], res["cfg"] = state, cfg
+        res[label] = dict(launches=launches, rates=rates, peak=peak, losses=losses)
+
+    # kill and resume: one epoch, then resumed to IMAGE_EPOCHS in another
+    # directory, bitwise the default run (no atomics on the path: the
+    # convolutions run cuDNN's deterministic algorithms, K2 sums in a fixed
+    # order)
+    state, cfg = res.pop("state"), res.pop("cfg")
+    resumed_dir = os.path.join(root, "resumed")
+    train_image.main(image_driver_args(seed, resumed_dir, "train.epochs=1"))
+    resumed, resumed_losses = train_image.main(image_driver_args(
+        seed, resumed_dir, f"train.epochs={IMAGE_EPOCHS}", "train.resume=true"))
+    bitwise = all(torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                     resumed.model.parameters()))
+    log(12, f"(c) 1 epoch, then resumed to {IMAGE_EPOCHS}: losses {resumed_losses} vs "
+            f"{res['image']['losses']}, parameters bitwise equal: {bitwise}; "
+            f"max-abs difference over max |param| {_params_rel(state.model, resumed.model):.3e}")
+    assert bitwise and resumed_losses == res["image"]["losses"], resumed_losses
+
+    # one step of the default run's model under the profiler
+    step = make_train_step(state.model, optimizer_from_config(cfg.train),
+                           lambda m, b, s: objectives.elbo(m, b, cfg.train.K, seed=s))
+    batch = image_batch(B_IMAGE, seed=seed + 40)
+    res["busy"] = profile_calls(lambda: step(state, batch), f"train_image step (B = {B_IMAGE})",
+                                n=2, top=10, phase=12)
+    return res
+
+
+def phase_try_image():
+    """Phase 12(d): try_models model=image on the bridged checkpoint at
+    K = 100 and n = 4 (the decoder on R = 400 rows, K1 at rate 0): its K1
+    launches against the prediction, finite reconstructions of the right
+    shape in its .npy, the figure where matplotlib is installed; K1 on the
+    captured input of the decoder's first 900x900 self-attention against
+    its plain version on all 400 rows (phase 3's gate); then the latency of
+    the reconstruction itself (median of 10, host clock ending in a
+    sync)."""
+    out = os.path.join(SMOKE_DIR, "try_image")
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = eval_goldstein._config_for(IMAGE_CKPT, ImageVAEConfig)
+    want = image_forward_launches(cfg, N_TRY, K_TRY)
+    rows, store = K_TRY * N_TRY, []
+    reset_counts()
+    t0 = time.perf_counter()
+    with capture_attention(rows, IMAGE_TOKENS, IMAGE_TOKENS, store):
+        recon = try_models.main(["model=image", f"mm_ckpt={IMAGE_CKPT}", f"K={K_TRY}",
+                                 f"n={N_TRY}", f"out={out}"])
+    wall = time.perf_counter() - t0
+    launches = dict(zip(COUNTERS, kernel_counts()))
+    try:
+        import matplotlib  # noqa: F401
+        drawn = os.path.exists(os.path.join(out, "image_reconstructions.png"))
+        assert drawn, "matplotlib is installed but no figure was written"
+    except ImportError:
+        drawn = False
+    saved = np.load(os.path.join(out, "image_reconstructions.npy"))
+    log(12, f"(d) try_models model=image K={K_TRY} n={N_TRY}: {wall:.3f} s with its set-up, "
+            f"launches {launches} (K1 predicted {want}), reconstructions {recon.shape} saved "
+            f"as .npy, figure written: {drawn}")
+    assert launches["K1"] == want and launches["K1 rate>0"] == 0, (launches, want)
+    assert recon.shape == (K_TRY, N_TRY, 3, IMG, IMG) and np.isfinite(recon).all()
+    assert np.array_equal(saved, recon)
+
+    q, k, v, mask = store
+    del store[:]
+    assert mask is None
+    with torch.inference_mode():
+        kernel = attention.fused_attention(q, k, v, None, HEADS)
+        plain = by_rows(lambda q_, k_, v_, _: attention.attention_reference(
+            q_, k_, v_, None, HEADS), (q, k, v), None)
+        torch.cuda.synchronize()
+        err = (kernel - plain).abs().max().item()
+    log(12, f"(d) K1 on try_image's captured decoder self-attention input [{rows}, "
+            f"{IMAGE_TOKENS}, {MODEL_DIM}] fp32, unmasked: max-abs {err:.3e} against the plain "
+            f"version on all rows (gate 1e-5; max |plain| {plain.abs().max().item():.3e})")
+    assert np.isfinite(err) and err <= 1e-5, err
+    del q, k, v, kernel, plain
+    torch.cuda.empty_cache()
+
+    model = eval_goldstein._restore(IMAGE_CKPT, train_image.build_model(cfg)).cuda().eval()
+    x = image_batch(N_TRY)
+    g = torch.Generator("cuda").manual_seed(0)
+    lat = []
+    with torch.inference_mode():
+        for i in range(12):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.reconstruct(x, K_TRY, generator=g)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+    med = statistics.median(lat[2:])
+    log(12, f"(d) HostImgVAE.reconstruct K={K_TRY} of {N_TRY} images (R = {K_TRY * N_TRY}): "
+            f"median {med * 1e3:.2f} ms over 10 calls after 2 warm ones")
+    return launches["K1"], med
+
+
+def phase_image_times():
+    """Phase 12(e): each kernel at the image path's shapes, fp32, unmasked,
+    beside its bound, as device time per call under torch.profiler (a
+    launch here takes ~0.1 ms, about the wrapper's host time, so CUDA
+    events around one call would time the host): K1 rate 0 and rate 0.1
+    (with its statistics) and K2 at rate 0.1 on 900x900, 3,600x3,600 and
+    400x400 at R = 32, K1 rate 0 on 900x900 at try_image's R = 400; at
+    900x900, R = 32 also the plain versions and scaled_dot_product_attention
+    without a mask (timed here only), many kernels a call each, with CUDA
+    events as phases 6 and 9 time them."""
+    res = {}
+    shapes = [("image", B_IMAGE, IMAGE_TOKENS), ("pixel", B_IMAGE, PIXEL_TOKENS),
+              ("mnist", B_IMAGE, MNIST_TOKENS), ("image_r400", K_TRY * N_TRY, IMAGE_TOKENS)]
+    for label, rows, n in shapes:
+        q, k, v, _ = attention_inputs(rows, n, n, False, seed=800)
+        calls = {"fwd0": lambda: attention.fused_attention(q, k, v, None, HEADS)}
+        r = res[label] = {"b_f0": attention_bound(rows, n, n, torch.float32, False)}
+        if label != "image_r400":
+            dout = randn_like(q, 801)
+            out, m, l = attention.fused_attention_fwd(q, k, v, None, HEADS, DROPOUT, 3)
+            calls["fwd"] = lambda: attention.fused_attention_fwd(q, k, v, None, HEADS, DROPOUT,
+                                                                 3)
+            calls["bwd"] = lambda: attention.fused_attention_bwd(q, k, v, None, out, m, l, dout,
+                                                                 HEADS, DROPOUT, 3)
+            r["b_f"] = attention_bound(rows, n, n, torch.float32, False, stats=True)
+            r["b_b"] = attention_bwd_bound(rows, n, n, torch.float32)
+        for key, fn in calls.items():
+            r[key], kernels, _ = device_kernels(fn)
+            assert kernels == 1, (label, key, kernels)
+        if label == "image":
+            slow = {"plain_f0": lambda: attention.attention_reference(q, k, v, None, HEADS),
+                    "plain_f": lambda: attention.attention_reference(q, k, v, None, HEADS,
+                                                                     DROPOUT, 3),
+                    "plain_b": lambda: attention.attention_backward_reference(
+                        q, k, v, None, dout, HEADS, DROPOUT, 3),
+                    "lib_f0": sdpa_call(q, k, v, None), "lib_f": sdpa_call(q, k, v, None, DROPOUT),
+                    "lib_b": sdpa_bwd_call(q, k, v, None, DROPOUT)}
+            r.update({key: time_ms(fn, reps=5, warmup=1) for key, fn in slow.items()})
+        log(12, f"(e) R={rows} {n}x{n} fp32 ({label}), device ms per call: K1 rate 0 "
+                f"{r['fwd0']:.4f} (bound {r['b_f0'][0]:.4f}, {r['b_f0'][1]})" + (
+                    f"; K1 rate 0.1 {r['fwd']:.4f} (bound {r['b_f'][0]:.4f}); K2 {r['bwd']:.4f} "
+                    f"(bound {r['b_b'][0]:.4f}, {r['b_b'][1]})" if "fwd" in r else "") + (
+                    f"; CUDA events, ms per call: plain rate 0 {r['plain_f0']:.3f}, rate 0.1 "
+                    f"{r['plain_f']:.3f}, backward {r['plain_b']:.3f}; library sdpa rate 0 "
+                    f"{r['lib_f0']:.4f}, rate 0.1 {r['lib_f']:.4f}, backward {r['lib_b']:.4f}"
+                    if "plain_f0" in r else ""))
+        del q, k, v, calls
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_image(seed):
+    """Phase 12, the image VAE. Returns the keys its kernels add to the
+    kernels line, and the worst fp32 errors of (a)."""
+    t_phase = time.perf_counter()
+    worst = phase_image_kernels()
+    phase_image_checkpoint()
+    train = phase_image_training(seed)
+    try_launches, latency = phase_try_image()
+    t = phase_image_times()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    img = train["image"]
+    log(12, f"train_image (B = {B_IMAGE}, K = 1, dropout {DROPOUT}, fp32): samples/s per epoch "
+            f"{', '.join(f'{r:.1f}' for r in img['rates'])}, median of epochs 2-{IMAGE_EPOCHS} "
+            f"{statistics.median(img['rates'][1:]):.1f} (epoch 1 of a fresh process warms cuBLAS "
+            f"and the allocator), peak memory {img['peak']:.0f} MiB, device busy "
+            f"{train['busy']:.1%} of a profiled step; reconstruct K={K_TRY} of {N_TRY} images "
+            f"{latency * 1e3:.2f} ms; on {smi}")
+    log(12, f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+    def grid_keys(kind):
+        """(ms, bound) keys of a row: kind 'f0' (K1 rate 0), 'f' (rate 0.1), 'b' (K2)."""
+        keys = {}
+        for label in ("image", "pixel", "mnist"):
+            keys[f"ms_{label}"] = t[label][{"f0": "fwd0", "f": "fwd", "b": "bwd"}[kind]]
+            keys[f"bound_ms_{label}"] = t[label][f"b_{kind}"][0]
+        keys.update(plain_ms_image=t["image"][f"plain_{kind}"],
+                    library_ms_image=t["image"][f"lib_{kind}"])
+        return keys
+
+    def launch_keys(counter, image_launches):
+        return {"launches_image": image_launches,
+                "launches_pixel": train["pixel"]["launches"][counter],
+                "launches_mnist": train["mnist"]["launches"][counter]}
+
+    rate0 = {lbl: train[lbl]["launches"]["K1"] - train[lbl]["launches"]["K1 rate>0"]
+             for lbl in ("pixel", "mnist")}
+    extra = {
+        "attention_fwd": {"launches_image": try_launches, "launches_pixel": rate0["pixel"],
+                          "launches_mnist": rate0["mnist"], **grid_keys("f0"),
+                          "ms_image_r400": t["image_r400"]["fwd0"],
+                          "bound_ms_image_r400": t["image_r400"]["b_f0"][0]},
+        "attention_fwd_dropout": {**launch_keys("K1 rate>0", img["launches"]["K1 rate>0"]),
+                                  **grid_keys("f")},
+        "attention_bwd": {**launch_keys("K2", img["launches"]["K2"]), **grid_keys("b")},
+    }
+    return extra, worst
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -1339,13 +1752,13 @@ def device_kernels(call, n=100):
 
     call()
     torch.cuda.synchronize()
-    for _ in range(3):  # a short profile now and then records no kernel at all
+    for _ in range(3):  # a profile now and then records no kernel time at all
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 call()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if _is_kernel(e) and e.count > 0]
-        if events:
+        if any(_device_us(e) > 0 for e in events):
             break
     per_call = {e.key: max(1, round(e.count / n)) for e in events}
     busy_us = sum(_device_us(e) / e.count * per_call[e.key] for e in events)
@@ -1399,6 +1812,10 @@ def main(argv=None):
     log(11, f"eval_goldstein (K = {K_EVAL}, fp32): {ev['events_s']:.1f} events/s, wall "
             f"{ev['wall']:.3f} s, peak memory {ev['peak']:.0f} MiB, device busy {ev['busy']:.1%} "
             f"of a profiled suite chunk; on {smi}")
+    torch.cuda.empty_cache()
+    image_extra, image_errs = phase_image(args.seed)
+    for name, err in image_errs.items():
+        errs[name] = max(errs[name], err)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -1431,7 +1848,12 @@ def main(argv=None):
     # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
     # inputs; launches_drivers counts phase 10's path (K1 at rate 0: the
     # from_checkpoint serving), launches_eval phase 11's, with K1's fp32 time
-    # and bound on its R = 12,800 decoder input (ms_eval, bound_ms_eval). The
+    # and bound on its R = 12,800 decoder input (ms_eval, bound_ms_eval);
+    # the attention rows add phase 12's: launches of train_image (K1 rate 0:
+    # of try_image) at the hybrid, per-pixel and MNIST grids
+    # (launches_{image,pixel,mnist}), fp32 times and bounds at R = 32 there
+    # (ms_, bound_ms_), K1 rate 0 at try_image's R = 400 (_image_r400), the
+    # plain version and SDPA at 900x900 (plain_ms_image, library_ms_image). The
     # Laplace rows are at the step's [2, 192]
     # slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
@@ -1449,7 +1871,8 @@ def main(argv=None):
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
-             **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}))
+             **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
+             **image_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

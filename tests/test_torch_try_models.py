@@ -17,6 +17,7 @@ from torch_parity import export_port_checkpoint
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "artifacts", "ckpt")
 FLAGSHIP = os.path.join(REPO, "artifacts", "ckpt_torch", "goldstein_photospec_4-4_K2_beta1.0")
+IMAGE = os.path.join(REPO, "artifacts", "ckpt_torch", "synthetic_image_4-4_patch2")
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +88,26 @@ def test_latent_swap_refuses_missing_or_mismatched_checkpoints(bridged):
     assert not (root / "refused").exists()
 
 
-def test_the_image_model_waits_for_its_slice(bridged):
+def test_the_image_model_reconstructs_its_checkpoint(bridged, monkeypatch, capsys):
+    """model=image on the bridged synthetic_image_4-4_patch2: K = 2
+    posterior draws of two synthetic images, saved as .npy beside the
+    figure; without matplotlib the same reconstructions are saved and no
+    figure is drawn."""
     root, _, _ = bridged
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        try_models.main(["model=image", f"out={root / 'image'}"], device="cpu")
+    out = root / "image"
+    argv = ["model=image", f"mm_ckpt={IMAGE}", "K=2", "n=2", f"out={out}"]
+    recon = try_models.main(argv, device="cpu")
+    assert recon.shape == (2, 2, 3, 60, 60) and np.isfinite(recon).all()
+    assert sorted(os.listdir(out)) == ["image_reconstructions.npy", "image_reconstructions.png"]
+    assert os.path.getsize(out / "image_reconstructions.png") > 0
+    np.testing.assert_array_equal(np.load(out / "image_reconstructions.npy"), recon)
+
+    def no_matplotlib():
+        raise ImportError("No module named 'matplotlib'")
+
+    monkeypatch.setattr(try_models, "_pyplot", no_matplotlib)
+    bare = try_models.main(argv[:-1] + [f"out={root / 'bare'}"], device="cpu")
+    np.testing.assert_array_equal(bare, recon)
+    assert os.listdir(root / "bare") == ["image_reconstructions.npy"]
+    np.testing.assert_array_equal(np.load(root / "bare" / "image_reconstructions.npy"), recon)
+    assert "no figure is written" in capsys.readouterr().out

@@ -22,7 +22,7 @@ import vaesne_tpu.models as jmodels
 import vaesne_tpu_torch.distributions as tdist
 import vaesne_tpu_torch.models as tmodels
 from vaesne_tpu_torch.utils import init_params, load_jax_params
-from vaesne_tpu_torch.utils.weights import torch_key
+from vaesne_tpu_torch.utils.weights import flax_kernel, torch_key
 
 SMALL = dict(latent_len=2, latent_dim=2, model_dim=16, ff_dim=16, num_layers=1, num_heads=2)
 FLAGSHIP = dict(latent_len=4, latent_dim=4, model_dim=32, ff_dim=32, num_layers=4, num_heads=4)
@@ -39,7 +39,7 @@ def jax_params_from(tm, jm, example):
     def leaf(path, _):
         names = tuple(p.key for p in path)
         value = state[torch_key(names[1:])].numpy()
-        return jnp.asarray(value.T if names[-1] == "kernel" else value)
+        return jnp.asarray(flax_kernel(value) if names[-1] == "kernel" else value)
 
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
@@ -108,7 +108,30 @@ _EXPORTABLE = {
     "SpectraVAEConfig": ("train_spectra", "goldstein", "spectra_tuple"),
     "ZTFSpectraConfig": ("train_ztf_spectra", "ztf", "spectra_tuple"),
     "PhotometryVAEConfig": ("train_photometry", "goldstein", "photometry_tuple"),
+    "ImageVAEConfig": ("train_image", "image", "image_tuple"),
 }
+# beside a bridged image checkpoint: the JAX package's posterior-mean
+# reconstruction of REFERENCE_IMAGES, decode(encode(x)).loc, dropout off
+REFERENCE_FILE = "jax_reconstruction.npy"
+REFERENCE_IMAGES = dict(n=8, seed=0)
+
+
+def jax_image_model(cfg):
+    """The JAX package's HostImgVAE for an ImageVAEConfig, built as its
+    train_image.main builds it."""
+    m = cfg.model
+    return jmodels.HostImgVAE(
+        img_size=cfg.img_size, patch_size=cfg.patch_size, in_channels=cfg.in_channels,
+        hybrid=cfg.hybrid, focal_loc=cfg.focal_loc, latent_len=m.latent_len,
+        latent_dim=m.latent_dim, model_dim=m.model_dim, num_heads=m.num_heads,
+        ff_dim=m.ff_dim, num_layers=m.num_layers, dropout=m.dropout, selfattn=m.selfattn,
+        beta=cfg.train.beta)
+
+
+def reference_images(cfg, n=REFERENCE_IMAGES["n"], seed=REFERENCE_IMAGES["seed"]):
+    import vaesne_tpu.data as jdata
+
+    return jdata.make_images(n=n, img_size=cfg.img_size, channels=cfg.in_channels, seed=seed)
 
 
 def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConfig"):
@@ -119,7 +142,9 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     ``InferenceServer.from_checkpoint`` read and ``restore_checkpoint``
     refuses (the AdamW moments are not bridged). The config class is the
     checkpoint's ``_config_class`` tag, else ``config_class``. The JAX
-    state is restored into an abstract template, so nothing is compiled."""
+    state is restored into an abstract template, so nothing is compiled.
+    For an image VAE it also writes ``REFERENCE_FILE``: the JAX package's
+    posterior-mean reconstruction of ``reference_images``, [N, C, H, W]."""
     import vaesne_tpu.data as jdata
     import vaesne_tpu.utils.checkpoint as jck
     import vaesne_tpu.utils.config as jcfg
@@ -131,9 +156,13 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     name = (jck.load_config(jax_dir) or {}).get("_config_class", config_class)
     driver, kind, builder = _EXPORTABLE[name]
     jc = jck.restore_config(jax_dir, jcfg.CONFIG_CLASSES[name])
-    jmodel = importlib.import_module(f"vaesne_tpu.experiments.{driver}").build_model(jc)
-    maker = jdata.make_goldstein_like if kind == "goldstein" else jdata.make_ztf_like
-    example = getattr(jdata, builder)(maker(n=8, seed=0), idx=np.arange(2))
+    if kind == "image":
+        jmodel = jax_image_model(jc)
+        example = jdata.image_tuple(reference_images(jc, n=2))
+    else:
+        jmodel = importlib.import_module(f"vaesne_tpu.experiments.{driver}").build_model(jc)
+        maker = jdata.make_goldstein_like if kind == "goldstein" else jdata.make_ztf_like
+        example = getattr(jdata, builder)(maker(n=8, seed=0), idx=np.arange(2))
     key = jax.random.PRNGKey(0)
     one_device = jax.sharding.SingleDeviceSharding(jax.devices()[0])
     template = jax.tree_util.tree_map(
@@ -148,6 +177,12 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     config = tcfg.asdict(tc)
     config["_config_class"] = name
     tck.save_params(out_dir, model, config)
+    if kind == "image":
+        x = jdata.image_tuple(reference_images(jc))
+        variables = {"params": params}
+        z = jmodel.apply(variables, x, method="encode")
+        loc = jmodel.apply(variables, z[None], x, method="decode").loc[0]
+        np.save(os.path.join(out_dir, REFERENCE_FILE), np.asarray(loc, np.float32))
     return model
 
 

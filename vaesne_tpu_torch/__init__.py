@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of VAESNe for one NVIDIA H100.
 
 A second package beside the JAX reference ``vaesne_tpu``: the serving and
-training paths of the photometry + spectra MoE-MMVAE in PyTorch, with the
+training paths of the photometry + spectra MoE-MMVAE and of the host-galaxy
+image VAE in PyTorch, with the
 JAX package's TPU kernels on those paths written by hand for Hopper in CUDA
 C++ (fused masked attention forward and backward, the masked Laplace
 log-likelihood forward and backward), and the data layer, configs,
@@ -13,14 +14,14 @@ on a card.
 
 from . import objectives, training
 from .distributions import Laplace, MaskedGridLaplace, Normal, get_mean, kl_divergence, log_mean_exp
-from .models import MMVAE, PhotometricVAE, PhotoSpecMMVAE, SpectraVAE
+from .models import HostImgVAE, MMVAE, PhotometricVAE, PhotoSpecMMVAE, SpectraVAE
 from .ops import attention_reference, fused_attention, masked_laplace_loglik, routes_to_kernel
 from .serving import InferenceServer
 from .training import TrainState, adamw, make_train_step
 from .utils import fold_in, init_params, load_jax_params, to_jax_params
 
 __all__ = [
-    "InferenceServer", "Laplace", "MMVAE", "MaskedGridLaplace", "Normal",
+    "HostImgVAE", "InferenceServer", "Laplace", "MMVAE", "MaskedGridLaplace", "Normal",
     "PhotoSpecMMVAE", "PhotometricVAE", "SpectraVAE", "TrainState", "adamw",
     "attention_reference", "fold_in", "fused_attention", "get_mean", "init_params",
     "kl_divergence", "load_jax_params", "log_mean_exp", "make_train_step",

@@ -1,8 +1,8 @@
 """Synthetic Goldstein- and ZTF-shaped data, in numpy.
 
 The port's own copy of ``vaesne_tpu/data/synthetic.py`` (its
-``make_goldstein_like`` and ``make_ztf_like``): the same seed gives
-bitwise-equal arrays in both packages. The dict honours the npz key
+``make_goldstein_like``, ``make_ztf_like`` and ``make_images``): the same
+seed gives bitwise-equal arrays in both packages. The dict honours the npz key
 contract the loaders read:
 
   Goldstein keys: training_idx, testing_idx, flux, wavelength, mask, phase,
@@ -161,3 +161,24 @@ def make_ztf_like(n: int = 128, seed: int = 0, **kwargs) -> Dict[str, np.ndarray
         d[f"{k}_mean"] = np.float32(0.0)
         d[f"{k}_std"] = np.float32(1.0)
     return d
+
+
+def make_images(n: int = 64, img_size: int = 60, channels: int = 3, seed: int = 0):
+    """Synthetic host-galaxy-like images in [−1, 1], NCHW float32: one
+    rotated elliptical Gaussian per image, a brightness per channel, and
+    noise of σ 0.05 before the map to [−1, 1]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:img_size, 0:img_size]
+    imgs = np.zeros((n, channels, img_size, img_size), np.float32)
+    for i in range(n):
+        cx, cy = rng.uniform(0.3, 0.7, 2) * img_size
+        sx, sy = rng.uniform(3, 12, 2)
+        theta = rng.uniform(0, np.pi)
+        xr = (xx - cx) * np.cos(theta) + (yy - cy) * np.sin(theta)
+        yr = -(xx - cx) * np.sin(theta) + (yy - cy) * np.cos(theta)
+        g = np.exp(-0.5 * ((xr / sx) ** 2 + (yr / sy) ** 2))
+        for c in range(channels):
+            imgs[i, c] = g * rng.uniform(0.5, 1.0) + 0.05 * rng.standard_normal(
+                (img_size, img_size)
+            )
+    return np.clip(imgs * 2.0 - 1.0, -1.0, 1.0).astype(np.float32)

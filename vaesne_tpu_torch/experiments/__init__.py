@@ -7,6 +7,8 @@ Train:
   train_spectra         — Goldstein spectra VAE
   train_ztf_photospect  — ZTF MMVAE
   train_ztf_spectra     — ZTF spectra VAE
+  train_image           — host-galaxy image VAE (synthetic, MNIST or a
+                          directory of image files)
 
 Evaluate:
   eval_goldstein        — residual/coverage/width/MSE per phase, one pass
@@ -16,7 +18,8 @@ Evaluate:
 
 Each runs as ``python -m vaesne_tpu_torch.experiments.<name> [data=/path.npz]
 [key=value ...]`` on the card and takes synthetic data of the npz contract
-when given no path; the train drivers write their checkpoint under
-``train.ckpt_dir``, which the eval drivers read (``mm_ckpt=``). In Python,
-``main(argv, device="cpu")`` runs on the CPU.
+when given no path (``train_image``: a directory of images); the train
+drivers write their checkpoint under ``train.ckpt_dir``, which the eval
+drivers read (``mm_ckpt=``). In Python, ``main(argv, device="cpu")`` runs on
+the CPU.
 """

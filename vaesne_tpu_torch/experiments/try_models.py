@@ -6,12 +6,14 @@ try_photospectra_model.py; K posterior samples, matplotlib CI-band figures;
 cross matrix convention ``[0][0]`` LC→LC, ``[0][1]`` LC→spec, ...,
 try_photospectra_model.py:78). Every figure needs matplotlib, which the
 H100 host does not have, so these drivers run where matplotlib is
-installed, on the CPU: ``main(argv, device="cpu")``. Without a ``device``
-they run on the card, as every entry point of the port does.
+installed, on the CPU: ``main(argv, device="cpu")``; ``model=image``
+also runs on the card, where it writes its reconstructions as .npy and
+skips its figure. Without a ``device`` they run on the card, as every
+entry point of the port does.
 
 Usage:
   python -m vaesne_tpu_torch.experiments.try_models \\
-      [model=mmvae|photometry|spectra|ztf_spectra|ztf_mmvae|latent_swap]
+      [model=mmvae|photometry|spectra|image|ztf_spectra|ztf_mmvae|latent_swap]
       [data=...] [mm_ckpt=...] [photo_ckpt=...] [spec_ckpt=...]
       [K=100] [n=4] [out=./figs]
 
@@ -20,9 +22,9 @@ try_ZTF_photospect.py) take bands and normalization from the ZTF data keys
 and the checkpoint's config.json. ``model=latent_swap`` reproduces the
 unimodal-VAE latent-swap cross-decode (try_photospectra_model.py:82-85): pass
 ``photo_ckpt=`` and ``spec_ckpt=`` pointing at unimodal checkpoints with
-matching latent shapes. ``model=image`` waits for the image slice (ROADMAP.md
-Queue 1 item 5). Checkpoints are the port's (``state.pt``); bridge a JAX
-one first.
+matching latent shapes. ``model=image`` (try_img_model.py) reconstructs
+synthetic images with an image VAE checkpoint. Checkpoints are the port's
+(``state.pt``); bridge a JAX one first.
 """
 
 from __future__ import annotations
@@ -101,11 +103,42 @@ def try_unimodal(which, data_path, ckpt, K, n_show, out_dir, device=None):
     _save(fig, plt, out_dir, f"{which}_reconstructions.png")
 
 
-def try_image(*args, **kwargs):
-    """Qualitative image reconstructions (try_img_model.py): not ported."""
-    raise NotImplementedError(
-        "try_image needs the image slice (HostImgVAE, make_images), which the PyTorch "
-        "port does not have yet (ROADMAP.md Queue 1 item 5)")
+def try_image(data_path, ckpt, K, n_show, out_dir, device=None):
+    """Qualitative image reconstructions (try_img_model.py): ``n_show``
+    images of ``make_images`` and the mean of their K posterior-draw
+    reconstructions. The reconstructions ([K, n_show, C, H, W]) go to
+    ``image_reconstructions.npy`` and are returned; the figure
+    ``image_reconstructions.png`` is drawn where matplotlib is installed
+    (not on the H100 host). ``data_path`` is not read, as in the JAX
+    driver."""
+    from ..data import image_tuple, make_images
+    from ..utils.config import ImageVAEConfig
+    from .train_image import build_model as build_image
+
+    device = resolve_device(device)
+    cfg = _config_for(ckpt, ImageVAEConfig)
+    model = _restore(ckpt, build_image(cfg)).to(device).eval()
+    images = make_images(n=n_show, img_size=cfg.img_size, channels=cfg.in_channels)
+    with torch.inference_mode():
+        recon = _np(model.reconstruct(image_tuple(images, device), K,
+                                      generator=device_generator(0, device)))
+    os.makedirs(out_dir, exist_ok=True)
+    np.save(os.path.join(out_dir, "image_reconstructions.npy"), recon)
+    try:
+        plt = _pyplot()
+    except ImportError:
+        print("matplotlib is not installed: no figure is written")
+        return recon
+    fig, axes = plt.subplots(2, n_show, figsize=(3 * n_show, 6), squeeze=False)
+    for i in range(n_show):
+        axes[0, i].imshow(np.moveaxis(images[i], 0, -1) * 0.5 + 0.5)
+        axes[0, i].set_title("input")
+        axes[1, i].imshow(np.clip(np.moveaxis(recon.mean(0)[i], 0, -1) * 0.5 + 0.5, 0, 1))
+        axes[1, i].set_title("reconstruction")
+        for ax in (axes[0, i], axes[1, i]):
+            ax.axis("off")
+    _save(fig, plt, out_dir, "image_reconstructions.png")
+    return recon
 
 
 def try_ztf_spectra(data_path, ckpt, K, n_show, out_dir, device=None):

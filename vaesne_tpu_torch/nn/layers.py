@@ -7,6 +7,8 @@ onto the other mechanically:
   * ``SingleLayerMLP``, ``MLP``
   * ``SinusoidalEmbedding`` (dim/2 frequencies), ``SinusoidalMLPEmbedding``
     (dim frequencies, then an MLP head)
+  * ``sinusoidal_embedding_2d`` (a fixed sin-cos grid) and ``PatchEmbedding``
+    (a Conv2d patchifier over NCHW images), for the image towers
   * ``MultiHeadAttention``: torch ``nn.MultiheadAttention`` semantics, with
     key-padding masks (True = ignore) folded in as a −1e9 bias, not −inf, so
     a fully masked row averages uniformly instead of giving NaN. Large grids
@@ -125,6 +127,54 @@ class SinusoidalMLPEmbedding(nn.Module):
         ang = x[..., None] * _div_term(self.dim, 1, x.device)
         enc = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
         return self.fc2(F.relu(self.fc1(enc)))
+
+
+def sinusoidal_embedding_2d(d_model: int, height: int, width: int,
+                            device=None) -> torch.Tensor:
+    """Fixed 2-D sin-cos grid embedding [H·W, d_model], rows in row-major
+    (h, w) order: pos_x + pos_y, each cat[sin(c·ω), cos(c·ω)] with
+    ω_i = 10000^(−i/(d/2)), i < d/2."""
+    if d_model % 4 != 0:
+        raise ValueError("d_model must be divisible by 4 for 2D sinusoidal embeddings.")
+    ys, xs = torch.meshgrid(torch.arange(height, dtype=torch.float32, device=device),
+                            torch.arange(width, dtype=torch.float32, device=device),
+                            indexing="ij")
+    xs, ys = xs.reshape(-1), ys.reshape(-1)
+    half = d_model // 2
+    omega = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32, device=device) / half))
+    out_x, out_y = xs[:, None] * omega[None, :], ys[:, None] * omega[None, :]
+    return (torch.cat([torch.sin(out_x), torch.cos(out_x)], dim=-1)
+            + torch.cat([torch.sin(out_y), torch.cos(out_y)], dim=-1))
+
+
+def cudnn_fp32_deterministic():
+    """cuDNN flags for the port's convolutions: fp32 (cuDNN's default is
+    TF32) and deterministic algorithms, whose weight gradient sums in a
+    fixed order where the default ones may add with atomics (two card runs
+    of one seed then differ). A convolution's backward reads the flags when
+    it runs, so the train step (``training.make_train_step``) holds them
+    too."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` over NCHW ``x`` under ``cudnn_fp32_deterministic``."""
+    with cudnn_fp32_deterministic():
+        return conv(x)
+
+
+class PatchEmbedding(nn.Module):
+    """Non-overlapping conv patchifier: NCHW [B, C, H, W] → tokens
+    [B, (H/p)·(W/p), embed_dim], row-major over the patch grid (the order
+    of the JAX layer's NHWC reshape)."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int):
+        super().__init__()
+        self.proj = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.proj).flatten(2).transpose(1, 2)
 
 
 def _need_seed(seed: Optional[int], what: str) -> int:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .nn.layers import cudnn_fp32_deterministic
 from .utils.rng import draw_seed, fold_in
 
 LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
@@ -189,13 +190,14 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
         seed = draw_seed(state.generator)
         batch = to_device(batch, device)
         state.optimizer.zero_grad(set_to_none=True)
-        if accum_steps == 1:
-            loss = neg_loss(model, batch, seed)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
-                                        accum_reduction)
+        with cudnn_fp32_deterministic():  # the convolutions' backward reads them
+            if accum_steps == 1:
+                loss = neg_loss(model, batch, seed)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
+                                            accum_reduction)
         if optimizer.grad_clip is not None:
             clip_by_global_norm([p.grad for p in model.parameters() if p.grad is not None],
                                 optimizer.grad_clip)

@@ -6,10 +6,14 @@ is mechanical: ``vaes_0`` ↔ ``vaes.0``, every other scope name as it is, and
 per leaf
 
   Dense ``kernel`` [in, out]  → ``weight`` [out, in] (transposed)
-  Dense/LayerNorm ``bias``    → ``bias``
+  Conv ``kernel`` [kh, kw, in, out] → ``weight`` [out, in, kh, kw]
+  Dense/Conv/LayerNorm ``bias`` → ``bias``
   LayerNorm ``scale``         → ``weight``
   Embed ``embedding``         → ``weight``
-  ``initbottleneck``          → ``initbottleneck``
+  ``initbottleneck``, ``pos_embed`` → themselves
+
+A square conv kernel's ``.T`` would also pass the shape check, with kh and
+kw swapped: conv kernels take their own permutation.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ import torch
 from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias", "initbottleneck": "initbottleneck"}
+         "bias": "bias", "initbottleneck": "initbottleneck", "pos_embed": "pos_embed"}
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# variance_scaling divides by it so the truncated draw keeps its variance
+_TRUNC_STD = 0.87962566103423978
 _LIST_SCOPE = re.compile(r"^(vaes)_(\d+)$")
 
 
@@ -35,6 +42,17 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
         else:
             flat[prefix + (k,)] = np.asarray(v)
     return flat
+
+
+def torch_weight(kernel: np.ndarray) -> np.ndarray:
+    """A flax ``kernel`` in the port's weight layout: Dense [in, out] →
+    [out, in]; Conv [kh, kw, in, out] → [out, in, kh, kw]."""
+    return kernel.T if kernel.ndim == 2 else np.transpose(kernel, (3, 2, 0, 1))
+
+
+def flax_kernel(weight: np.ndarray) -> np.ndarray:
+    """The inverse of ``torch_weight``."""
+    return weight.T if weight.ndim == 2 else np.transpose(weight, (2, 3, 1, 0))
 
 
 def torch_key(path: Tuple[str, ...]) -> Optional[str]:
@@ -63,7 +81,7 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
             unused.append("/".join(path))
             continue
         if path[-1] == "kernel":
-            value = value.T
+            value = torch_weight(value)
         if tuple(value.shape) != tuple(state[key].shape):
             raise ValueError(f"{'/'.join(path)}: shape {value.shape} does not fit "
                              f"{key} {tuple(state[key].shape)}")
@@ -77,6 +95,7 @@ def load_jax_params(module: nn.Module, params: Mapping) -> None:
 
 
 _TORCH_LEAF = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+               nn.Conv2d: {"weight": "kernel", "bias": "bias"},
                nn.LayerNorm: {"weight": "scale", "bias": "bias"},
                nn.Embedding: {"weight": "embedding"}}
 
@@ -85,8 +104,8 @@ def to_jax_params(module: nn.Module,
                   values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Dict]:
     """The inverse of ``load_jax_params``: the flax ``{"params": …}`` tree
     of numpy arrays holding ``module``'s parameters, or ``values`` keyed by
-    parameter name instead (gradients, say). Dense kernels come out
-    transposed to [in, out]."""
+    parameter name instead (gradients, say). Kernels come out in flax's
+    layout (``flax_kernel``)."""
     values = dict(module.named_parameters()) if values is None else values
     tree: Dict[str, Dict] = {}
     for mod_name, mod in module.named_modules():
@@ -99,7 +118,7 @@ def to_jax_params(module: nn.Module,
             key = f"{mod_name}.{name}" if mod_name else name
             value = values[key].detach().cpu().numpy()
             if leaf == "kernel":
-                value = value.T
+                value = flax_kernel(value)
             node = tree
             for scope in (_list_scope(mod_name) if mod_name else []):
                 node = node.setdefault(scope, {})
@@ -122,9 +141,17 @@ def _list_scope(name: str):
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter from ``generator`` (on the CPU), so a seed
     alone fixes the weights: Linear weight and bias ~ U(±1/√fan_in),
-    LayerNorm 1 and 0, Embedding and ``initbottleneck`` ~ N(0, 1)."""
+    Conv2d weight lecun-normal as flax's default (a normal truncated at ±2σ,
+    rescaled to variance 1/fan_in, fan_in = kh·kw·in) and bias 0, LayerNorm
+    1 and 0, Embedding and ``initbottleneck`` ~ N(0, 1), ``pos_embed`` 0."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                                  generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             for p in (m.weight, m.bias):
                 u = torch.rand(p.shape, generator=generator)
@@ -136,4 +163,6 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
         if isinstance(getattr(m, "initbottleneck", None), nn.Parameter):
             m.initbottleneck.copy_(torch.randn(m.initbottleneck.shape, generator=generator))
+        if isinstance(getattr(m, "pos_embed", None), nn.Parameter):
+            m.pos_embed.zero_()
     return module
