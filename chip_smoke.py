@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving, training and evaluation paths, and
-the image VAE's, on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training and evaluation paths, the
+image VAE's, and the contrastive and regression drivers', on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,7 +13,7 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      process per source in parallel, and any register spill;
   3. each kernel against its plain PyTorch version on the card at the
      shapes the paths give it (serving, the B = 192 step, the B = 16
-     drivers of phase 10): K1 attention forward at rate 0 and 0.1,
+     drivers of phase 10, the 983x983 spectra context of phase 13(c)): K1 attention forward at rate 0 and 0.1,
      its measured keep rate, K2 attention backward against autograd
      through the plain version, K3/K4 masked Laplace forward and backward
      in fp32 and bf16 on experts' slices of a stacked decode;
@@ -61,7 +62,21 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      every epoch's launches checked, samples/s, peak memory, a
      kill-and-resume bitwise equal to the 2 epochs, and a profile of one
      step; (d) try_models model=image at K = 100; (e) the kernels' device
-     times and bounds at the image grids.
+     times and bounds at the image grids;
+ 13. contrastive pretraining and the regression heads at the shipped
+     widths on the synthetic data: (a) the bridged
+     goldstein_contrastive_4-4_proj8's projections and InfoNCE on the 103
+     test events against the JAX package's; (b) train_contrastive.main for
+     3 epochs, a run resumed from epoch 2 bitwise the same, samples/s
+     (StepTimer), peak memory, a profiled step; (c) train_contrastive
+     model.selfattn=true for an epoch, the spectra tower's 983x983
+     key-padded context self-attention on K1 and K2, launches as predicted,
+     both held against their plain versions on the captured input and
+     timed beside their bounds, the plain versions and SDPA; (d)
+     train_regression.main for both modalities and the three backbones, the
+     frozen backbones bitwise unchanged and outside AdamW; (e)
+     eval_regression.main on the bridged goldstein_photometry2param_mmvae
+     head against the JAX package's CPU result.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -99,13 +114,16 @@ from vaesne_tpu_torch import (
     make_train_step,
     objectives,
 )
-from vaesne_tpu_torch.data import image_tuple, make_images, multimodal_tuple
+from vaesne_tpu_torch.data import image_tuple, make_images, multimodal_tuple, photometry_tuple
 from vaesne_tpu_torch.experiments import (
     eval_goldstein,
     eval_masking,
+    eval_regression,
+    train_contrastive,
     train_image,
     train_photometry,
     train_photospectra,
+    train_regression,
     train_spectra,
     train_ztf_photospect,
     train_ztf_spectra,
@@ -114,7 +132,15 @@ from vaesne_tpu_torch.experiments import (
 from vaesne_tpu_torch.experiments.common import optimizer_from_config, resolve_dataset
 from vaesne_tpu_torch.ops import _build, laplace_routes_to_kernel, routes_to_kernel
 from vaesne_tpu_torch.training import to_device
-from vaesne_tpu_torch.utils.config import ImageVAEConfig, PhotoSpectraMMVAEConfig
+from vaesne_tpu_torch.utils import fold_in
+from vaesne_tpu_torch.utils.config import (
+    ContrastiveConfig,
+    ImageVAEConfig,
+    PhotoSpectraMMVAEConfig,
+    RegressionConfig,
+    parse_overrides,
+)
+from vaesne_tpu_torch.utils.profiling import StepTimer
 
 # the flagship model (vaesne_tpu/experiments/train_photospectra.py, bench.py)
 NUM_BANDS, LATENT_LEN, LATENT_DIM = 6, 4, 4
@@ -146,6 +172,18 @@ B_IMAGE, IMAGE_EPOCHS, N_IMAGES = 32, 2, 512
 K_TRY, N_TRY = 100, 4
 IMAGE_CKPT = os.path.join("artifacts", "ckpt_torch", "synthetic_image_4-4_patch2")
 IMAGE_REF = os.path.join(IMAGE_CKPT, "jax_reconstruction.npy")
+# phase 13: the contrastive towers (ContrastiveConfig: latent 4x4, model_dim
+# 32, 4 heads, 4 layers, proj 8, B = 32, tau 0.1) and the regression heads
+# (RegressionConfig: MLP (128,)x4, B = 32) on resolve_dataset(None,
+# "goldstein"): 512 synthetic events, 409 to train, 103 to test. The spectra
+# tower's context is the 982 bins plus the phase token
+B_CONTRA, CONTRA_EPOCHS, CONTEXT = 32, 3, NS + 1
+CONTRA_CKPT = os.path.join("artifacts", "ckpt_torch", "goldstein_contrastive_4-4_proj8")
+CONTRA_REF = os.path.join(CONTRA_CKPT, "jax_projections.npz")
+HEAD_CKPT = os.path.join("artifacts", "ckpt_torch", "goldstein_photometry2param_mmvae")
+HEAD_REF = os.path.join(HEAD_CKPT, "jax_absdiff.npy")
+HEAD_TPU = os.path.join("artifacts", "eval", "avg_absdiff_photometry2goldstein_param_mmvae.npz")
+REGRESSION_BACKBONES = {"mmvae": EVAL_CKPT, "contrast": CONTRA_CKPT, "end2end": None}
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, fp32
 # FMA-pipe flop/s, bf16 tensor-core flop/s
@@ -434,7 +472,9 @@ def phase_kernel_vs_plain():
     cases = [("982x982 masked, row 0 fully masked", 64, NS, NS, True),
              ("982x5", 256, NS, LATENT_LEN + 1, False),
              ("60x60 masked", 256, LP, LP, True),
-             ("60x4", 256, LP, LATENT_LEN, False)]
+             ("60x4", 256, LP, LATENT_LEN, False),
+             ("983x983 masked (the contrastive spectra context), row 0 fully masked",
+              B_CONTRA, CONTEXT, CONTEXT, True)]
     for i, (label, rows, lq, lk, masked) in enumerate(cases):
         q, k, v, mask = attention_inputs(rows, lq, lk, masked, seed=100 + i, full_row=masked)
         for rate, seed, name in ((0.0, None, "attention_fwd"),
@@ -459,8 +499,9 @@ def phase_kernel_vs_plain():
     keep_rate_check()
     # K2 at the training path's grids: 982x982 at the drivers' R = M·K·16 =
     # 64 (the plain version materialises int64 hash tensors of R·H·982²
-    # entries, ~2 GB each), 982x5, 60x60
-    for i, (label, rows, lq, lk, masked) in enumerate(cases[:3]):
+    # entries, ~2 GB each), 982x5, 60x60, and 983x983 at train_contrastive
+    # model.selfattn=true's R = 32
+    for i, (label, rows, lq, lk, masked) in enumerate(cases[:3] + cases[4:]):
         rows = M * K_TRAIN * B_DRIVER if lq == lk == NS else rows
         q, k, v, mask = attention_inputs(rows, lq, lk, masked, seed=200 + i, full_row=masked)
         dout = randn_like(q, 300 + i)
@@ -1697,6 +1738,406 @@ def phase_image(seed):
     return extra, worst
 
 
+# -- contrastive pretraining and the regression heads -------------------------------
+
+def batch_rows(batch, start, stop):
+    """Events start..stop of a nested tuple of tensors."""
+    return tuple(tuple(t[start:stop] for t in m) for m in batch)
+
+
+def encoder_launches_of(rows, queries, context, selfattn):
+    """K1 launches of one encoder TransformerStack forward on ``rows``
+    events: per layer the queries' self-attention, the context
+    self-attention where ``selfattn``, and the cross-attention."""
+    return LAYERS * (int(routes_to_kernel(rows, HEADS, queries, queries))
+                     + selfattn * int(routes_to_kernel(rows, HEADS, context, context))
+                     + int(routes_to_kernel(rows, HEADS, queries, context)))
+
+
+def contrastive_step_prediction(cfg):
+    """Launches per train_contrastive step (COUNTERS order): both towers in
+    train mode (latent_len queries over the light curve, and over the
+    spectrum plus its phase token), so every routed grid launches K1 at the
+    dropout rate in the forward and again in remat's re-run, and K2 once;
+    no likelihood, so no K3 or K4."""
+    sa, rows, q = cfg.model.selfattn, cfg.train.batch_size, cfg.model.latent_len
+    n = encoder_launches_of(rows, q, LP, sa) + encoder_launches_of(rows, q, CONTEXT, sa)
+    rate = 2 * n if cfg.model.dropout > 0 else 0
+    return (rate, 2 * n, n, 0, 0)
+
+
+def regression_step_prediction(modality, backbone):
+    """Launches per train_regression step at the default configs: a frozen
+    backbone's encoder (2·latent_len VAE queries, or latent_len tower
+    queries) runs in eval mode once, with no gradient to re-run it for; an
+    end-to-end encoder trains as a contrastive tower does."""
+    context = LP if modality == "photometry" else CONTEXT
+    latent_len = ContrastiveConfig().model.latent_len
+    queries = 2 * latent_len if backbone == "mmvae" else latent_len
+    n = encoder_launches_of(B_CONTRA, queries, context, False)
+    if backbone == "end2end":
+        return (2 * n, 2 * n, n, 0, 0)
+    return (0, n, 0, 0, 0)
+
+
+def phase_contrastive_checkpoint():
+    """Phase 13(a): the bridged goldstein_contrastive_4-4_proj8 on the card,
+    dropout off, on the 103 test events: z1 and z2 against the JAX
+    package's (jax_projections.npz) within 1e-4 of max |z|, the InfoNCE
+    over batches of 32 within 1e-4 of the JAX value; no kernel launched
+    (every grid is below the dispatch thresholds)."""
+    cfg = eval_goldstein._config_for(CONTRA_CKPT, ContrastiveConfig)
+    model = eval_goldstein._restore(CONTRA_CKPT, train_contrastive.build_model(cfg))
+    model = model.cuda().eval()
+    data = resolve_dataset(None, "goldstein")
+    x = multimodal_tuple(data, idx=np.asarray(data["testing_idx"]), device="cuda")
+    ref = np.load(CONTRA_REF)
+    reset_counts()
+    with torch.inference_mode():
+        z1, z2 = model(x)
+        ce = [-objectives.neg_info_nce(model, batch_rows(x, s, s + B_CONTRA),
+                                       cfg.temperature).item()
+              for s in range(0, z1.shape[0] - B_CONTRA + 1, B_CONTRA)]
+    launches = dict(zip(COUNTERS, kernel_counts()))
+    rel = [np.abs(z.cpu().numpy() - ref[k]).max() / np.abs(ref[k]).max()
+           for z, k in ((z1, "z1"), (z2, "z2"))]
+    err = np.abs(np.asarray(ce) - ref["info_nce"]).max()
+    log(13, f"(a) {CONTRA_CKPT} on {z1.shape[0]} test events: z1, z2 {tuple(z1.shape)} against "
+            f"JAX max-abs/max {rel[0]:.3e}, {rel[1]:.3e} (gate 1e-4); InfoNCE over batches of "
+            f"{B_CONTRA} {np.array2string(np.asarray(ce), precision=6)} (mean "
+            f"{np.mean(ce):.6f}; ln {B_CONTRA} = {np.log(B_CONTRA):.6f}), JAX "
+            f"{np.array2string(ref['info_nce'], precision=6)}, max-abs {err:.3e} (gate 1e-4); "
+            f"launches {launches}")
+    assert z1.shape == ref["z1"].shape and all(r <= 1e-4 for r in rel), rel
+    assert err <= 1e-4, err
+    assert all(v == 0 for v in launches.values()), launches
+
+
+def epoch_timer(phase, label, per_step, timer):
+    """A train_loop callback that appends each epoch's host time (epoch end
+    to epoch end, the save included) to ``timer`` and checks its launches
+    against ``per_step`` per step; ``start()`` marks the run's start."""
+    mark = {}
+
+    def start():
+        torch.cuda.synchronize()
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+
+    def on_epoch(epoch, state, loss):
+        now, counts = time.perf_counter(), kernel_counts()
+        steps = state.step - mark["step"]
+        got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+        log(phase, f"{label} epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
+                   f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}")
+        assert np.isfinite(loss) and got == tuple(steps * w for w in per_step), (got, steps)
+        timer.times.append(now - mark["t"])
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+
+    return start, on_epoch
+
+
+def phase_contrastive_training(seed):
+    """Phase 13(b): train_contrastive.main at ContrastiveConfig's defaults
+    (B = 32, dropout 0.1, the augmentation each epoch) for CONTRA_EPOCHS
+    epochs: finite losses, launches as predicted (none), samples/s as
+    StepTimer's mean over epochs 2-3, peak memory; a run of 2 epochs
+    resumed to 3, bitwise the first; the device's busy share of one
+    profiled step."""
+    root = os.path.join(SMOKE_DIR, "contrastive")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = ContrastiveConfig()
+    per_step = contrastive_step_prediction(cfg)
+    timer = StepTimer(skip=1)
+    start, on_epoch = epoch_timer(13, "(b) train_contrastive", per_step, timer)
+    torch.cuda.reset_peak_memory_stats()
+    start()
+    state, losses = train_contrastive.main(
+        driver_args(seed, os.path.join(root, "a"), f"train.epochs={CONTRA_EPOCHS}",
+                    "train.save_every=1"), callback=on_epoch)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    steps = state.step // CONTRA_EPOCHS
+    rate = timer.summary(items_per_step=steps * cfg.train.batch_size)["items_per_sec"]
+    assert np.isfinite(losses).all() and len(losses) == CONTRA_EPOCHS, losses
+
+    train_contrastive.main(driver_args(seed, os.path.join(root, "b"),
+                                       f"train.epochs={CONTRA_EPOCHS - 1}"))
+    resumed, resumed_losses = train_contrastive.main(driver_args(
+        seed, os.path.join(root, "b"), f"train.epochs={CONTRA_EPOCHS}", "train.resume=true"))
+    bitwise = all(torch.equal(a, b) for a, b in zip(state.model.parameters(),
+                                                     resumed.model.parameters()))
+    log(13, f"(b) {CONTRA_EPOCHS - 1} epochs, then resumed to {CONTRA_EPOCHS}: losses "
+            f"{resumed_losses} vs {losses}, parameters bitwise equal: {bitwise}")
+    assert bitwise and resumed_losses == losses, resumed_losses
+
+    step = make_train_step(state.model, optimizer_from_config(cfg.train),
+                           lambda m, b, s: objectives.neg_info_nce(m, b, cfg.temperature, seed=s))
+    data = resolve_dataset(None, "goldstein", seed=seed)
+    batch = multimodal_tuple(data, idx=np.asarray(data["training_idx"])[:B_CONTRA],
+                             device="cuda")
+    busy = profile_calls(lambda: step(state, batch), f"train_contrastive step (B = {B_CONTRA})",
+                         n=2, top=8, phase=13)
+    log(13, f"(b) train_contrastive ({CONTRA_EPOCHS} epochs of {steps} steps, B = "
+            f"{cfg.train.batch_size}, dropout {cfg.model.dropout}, fp32): losses {losses}; "
+            f"samples/s {rate:.1f} (StepTimer over epochs 2-{CONTRA_EPOCHS}; epoch times "
+            f"{', '.join(f'{t:.3f}' for t in timer.times)} s), peak memory {peak:.0f} MiB, "
+            f"device busy {busy:.1%} of a profiled step")
+    return dict(rate=rate, peak=peak, busy=busy, losses=losses)
+
+
+def hold_attention(q, k, v, mask, label, phase):
+    """K1 at rate 0 and 0.1 and K2 at rate 0.1 on one fp32 input (a path
+    that trains in fp32) against their plain versions (by_rows), with phase
+    3's fp32 gates: forward max-abs ≤ 1e-5, gradients ≤ 1e-4 of max
+    |plain|. The kernels on the bf16-rounded input are printed beside them,
+    against the plain version on the same rounded input and on the fp32
+    one, not gated: phase 3 holds bf16 at these shapes on its random
+    inputs, and on a real input's near-uniform attention dq is a small
+    difference of large terms, which bf16 rounds coarsely. Returns the
+    worst fp32 max-abs errors."""
+    worst = {}
+    dout = randn_like(q, 1300)
+    q16, k16, v16, d16 = (t.bfloat16() for t in (q, k, v, dout))
+    rounded = [t.float() for t in (q16, k16, v16, d16)]
+    for rate, seed, name in ((0.0, None, "attention_fwd"),
+                             (DROPOUT, 1301, "attention_fwd_dropout")):
+        ref, ref16 = (by_rows(lambda q_, k_, v_, m_, s: attention.attention_reference(
+            q_, k_, v_, m_, HEADS, rate, s), (*inputs, mask), seed)
+            for inputs in ((q, k, v), rounded[:3]))
+        out = attention.fused_attention(q, k, v, mask, HEADS, rate, seed)
+        out16 = attention.fused_attention(q16, k16, v16, mask, HEADS, rate, seed)
+        torch.cuda.synchronize()
+        err32, err16, err16_fp32 = ((out - ref).abs().max().item(), _rel(out16, ref16),
+                                    _rel(out16, ref))
+        log(phase, f"{label} attention_fwd rate {rate}: fp32 max-abs {err32:.3e}; bf16 rel "
+                   f"{err16:.3e} (against the plain version on fp32 inputs {err16_fp32:.3e}; "
+                   f"not gated)")
+        assert np.isfinite(err32) and err32 <= 1e-5, (label, rate, err32)
+        worst[name] = err32
+    want, want16 = (by_rows(lambda q_, k_, v_, m_, d_, s: attention.attention_backward_reference(
+        q_, k_, v_, m_, d_, HEADS, DROPOUT, s), (*inputs[:3], mask, inputs[3]), 1302)
+        for inputs in ((q, k, v, dout), rounded))
+    errs = {}
+    for dtype, qd, kd, vd, dd in ((torch.float32, q, k, v, dout),
+                                  (torch.bfloat16, q16, k16, v16, d16)):
+        out, m, l = attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, DROPOUT, 1302)
+        grads = attention.fused_attention_bwd(qd, kd, vd, mask, out, m, l, dd, HEADS, DROPOUT,
+                                              1302)
+        torch.cuda.synchronize()
+        errs[dtype] = [_rel(g, w) for g, w in zip(grads, want if dtype == torch.float32
+                                                  else want16)]
+        if dtype == torch.float32:
+            worst["attention_bwd"] = max((g - w).abs().max().item() for g, w in zip(grads, want))
+        else:
+            errs["bf16_fp32"] = [_rel(g, w) for g, w in zip(grads, want)]
+    logits = attention._logits(q, k, None, HEADS)
+    log(phase, f"{label} attention_bwd rate {DROPOUT}: dq, dk, dv rel fp32 "
+               + ", ".join(f"{e:.2e}" for e in errs[torch.float32]) + "; bf16 "
+               + ", ".join(f"{e:.2e}" for e in errs[torch.bfloat16]) + " (against the plain "
+               "version on fp32 inputs " + ", ".join(f"{e:.2e}" for e in errs["bf16_fp32"])
+               + f"; not gated); max |logit| {logits.abs().max().item():.3f}")
+    del logits
+    assert all(np.isfinite(e) and e <= 1e-4 for e in errs[torch.float32]), label
+    return worst
+
+
+def phase_contrastive_selfattn(seed):
+    """Phase 13(c): train_contrastive model.selfattn=true for one epoch,
+    the spectra tower's context self-attention over 982 bins and the phase
+    token on K1 and K2: launches per step as contrastive_step_prediction
+    derives them from routes_to_kernel; K1 and K2 on the captured
+    [32, 983, 32] key-padded input against their plain versions with phase
+    3's gates; then their device times beside the bounds, the plain
+    versions and scaled_dot_product_attention on that input. Returns the
+    run's launches, the worst fp32 errors and the times."""
+    root = os.path.join(SMOKE_DIR, "contrastive_selfattn")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = parse_overrides(ContrastiveConfig(), ["model.selfattn=true"])
+    per_step = contrastive_step_prediction(cfg)
+    log(13, f"(c) selfattn: predicted launches per step {dict(zip(COUNTERS, per_step))}")
+    assert per_step[1] > 0 and per_step[2] > 0, per_step
+    timer, store = StepTimer(skip=0), []
+    start, on_epoch = epoch_timer(13, "(c) train_contrastive model.selfattn=true", per_step,
+                                  timer)
+    reset_counts()
+    start()
+    with capture_attention(B_CONTRA, CONTEXT, CONTEXT, store):
+        state, losses = train_contrastive.main(
+            driver_args(seed, root, "model.selfattn=true", "train.epochs=1"), callback=on_epoch)
+    launches = dict(zip(COUNTERS, kernel_counts()))
+    assert np.isfinite(losses).all()
+    assert tuple(launches.values()) == tuple(state.step * w for w in per_step), launches
+
+    q, k, v, mask = (t.detach() for t in store)
+    del store[:]
+    assert mask is not None and not bool(mask[:, -1].any())  # the phase token is observed
+    worst = hold_attention(q, k, v, mask, f"(c) captured [{B_CONTRA}, {CONTEXT}, {MODEL_DIM}] "
+                                          f"({mask.float().mean().item():.1%} of keys masked)", 13)
+    dout = randn_like(q, 1310)
+    out, m, l = attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, 3)
+    dev = {"fwd0": lambda: attention.fused_attention(q, k, v, mask, HEADS),
+           "fwd": lambda: attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, 3),
+           "bwd": lambda: attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, HEADS,
+                                                        DROPOUT, 3)}
+    t = {}
+    for key, fn in dev.items():
+        t[key], kernels, _ = device_kernels(fn)
+        assert kernels == 1, (key, kernels)
+    slow = {"plain_f0": lambda: attention.attention_reference(q, k, v, mask, HEADS),
+            "plain_f": lambda: attention.attention_reference(q, k, v, mask, HEADS, DROPOUT, 3),
+            "plain_b": lambda: attention.attention_backward_reference(q, k, v, mask, dout, HEADS,
+                                                                      DROPOUT, 3),
+            "lib_f0": sdpa_call(q, k, v, mask), "lib_f": sdpa_call(q, k, v, mask, DROPOUT),
+            "lib_b": sdpa_bwd_call(q, k, v, mask, DROPOUT)}
+    t.update({key: time_ms(fn, reps=5, warmup=1) for key, fn in slow.items()})
+    t["b_f0"] = attention_bound(B_CONTRA, CONTEXT, CONTEXT, torch.float32, True)
+    t["b_f"] = attention_bound(B_CONTRA, CONTEXT, CONTEXT, torch.float32, True, stats=True)
+    t["b_b"] = attention_bwd_bound(B_CONTRA, CONTEXT, CONTEXT, torch.float32)
+    log(13, f"(c) R={B_CONTRA} {CONTEXT}x{CONTEXT} masked fp32, device ms per call: K1 rate 0 "
+            f"{t['fwd0']:.4f} (bound {t['b_f0'][0]:.4f}, {t['b_f0'][1]}), rate 0.1 "
+            f"{t['fwd']:.4f} (bound {t['b_f'][0]:.4f}); K2 {t['bwd']:.4f} (bound "
+            f"{t['b_b'][0]:.4f}, {t['b_b'][1]}); CUDA events, ms per call: plain rate 0 "
+            f"{t['plain_f0']:.3f}, rate 0.1 {t['plain_f']:.3f}, backward {t['plain_b']:.3f}; "
+            f"library sdpa rate 0 {t['lib_f0']:.4f}, rate 0.1 {t['lib_f']:.4f}, backward "
+            f"{t['lib_b']:.4f}; epoch {timer.times[0]:.3f} s")
+    del q, k, v, mask, dout, out, m, l, dev, slow
+    torch.cuda.empty_cache()
+    return launches, worst, t
+
+
+def phase_regression_training(seed):
+    """Phase 13(d): train_regression.main for one epoch for each modality
+    and backbone at RegressionConfig's defaults: mmvae over the bridged
+    flagship, contrast over the bridged contrastive checkpoint, end2end
+    from scratch. With a frozen backbone every backbone parameter is
+    bitwise its checkpoint's and has no optimizer state; every trainable
+    parameter moved from its initial value (train_loop's initialisation
+    under the run's seed); launches as the dispatch rule predicts (none).
+    Returns samples/s of each run."""
+    root = os.path.join(SMOKE_DIR, "regression")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = RegressionConfig()
+    rates = {}
+    for modality in train_regression.MODALITIES:
+        for backbone in train_regression.BACKBONES:
+            ckpt = REGRESSION_BACKBONES[backbone]
+            timer = StepTimer(skip=0)
+            per_step = regression_step_prediction(modality, backbone)
+            start, on_epoch = epoch_timer(13, f"(d) {modality} {backbone}", per_step, timer)
+            reset_counts()
+            start()
+            state, losses = train_regression.main(
+                [f"modality={modality}", f"backbone={backbone}",
+                 *([f"backbone_ckpt={ckpt}"] if ckpt else []),
+                 *driver_args(seed, root, "train.epochs=1")], callback=on_epoch)
+            head, frozen = train_regression.build_head(modality, backbone, ckpt, seed, cfg)
+            init_params(head, torch.Generator().manual_seed(fold_in(seed, 0)))
+            initial = head.state_dict()
+            trainable = {id(p) for p in state.trainable_parameters()}
+            n_frozen = n_moved = 0
+            for name, p in state.model.named_parameters():
+                if frozen and name in frozen:
+                    assert torch.equal(p.cpu(), frozen[name]), name
+                    assert id(p) not in trainable and p not in state.optimizer.state, name
+                    n_frozen += 1
+                else:
+                    assert id(p) in trainable and not torch.equal(p.cpu(), initial[name]), name
+                    n_moved += 1
+            samples = state.step * cfg.train.batch_size
+            rates[(modality, backbone)] = samples / timer.times[0]
+            log(13, f"(d) train_regression modality={modality} backbone={backbone}: loss "
+                    f"{losses[0]:.6f}, {state.step} steps, {rates[(modality, backbone)]:.1f} "
+                    f"samples/s (one epoch, host clock, the save included); {n_frozen} frozen "
+                    f"parameters bitwise their checkpoint's and outside AdamW, {n_moved} "
+                    f"trainable parameters all moved")
+            assert np.isfinite(losses).all() and n_moved == len(trainable)
+            assert (n_frozen > 0) == (backbone != "end2end")
+    return rates
+
+
+def phase_regression_eval():
+    """Phase 13(e): eval_regression.main on the bridged
+    goldstein_photometry2param_mmvae head with the copied normalizing JSON:
+    absdiff [103, 4] within 1e-4 absolute of the JAX package's CPU result
+    (jax_absdiff.npy); the per-parameter means beside the shipped TPU
+    file's; events/s of the driver (its set-up included) and of the head's
+    forward alone (median of 10 calls)."""
+    out = os.path.join(SMOKE_DIR, "regression_eval")
+    shutil.rmtree(out, ignore_errors=True)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    absdiff = eval_regression.main(["modality=photometry", "backbone=mmvae",
+                                    f"head_ckpt={HEAD_CKPT}",
+                                    f"train.ckpt_dir={os.path.dirname(HEAD_CKPT)}", f"out={out}"])
+    wall = time.perf_counter() - t0
+    launches = dict(zip(COUNTERS, kernel_counts()))
+    ref, tpu = np.load(HEAD_REF), np.load(HEAD_TPU)["mean"]
+    err = np.abs(absdiff - ref).max()
+    head, _ = train_regression.build_head("photometry", "mmvae")
+    head = eval_goldstein._restore(HEAD_CKPT, head).cuda().eval()
+    data = resolve_dataset(None, "goldstein")
+    x = photometry_tuple(data, idx=np.asarray(data["testing_idx"]), device="cuda")
+    lat = []
+    with torch.inference_mode():
+        for _ in range(12):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            head(x)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t1)
+    forward = statistics.median(lat[2:])
+    n = absdiff.shape[0]
+    log(13, f"(e) eval_regression {HEAD_CKPT}: absdiff {absdiff.shape} max-abs {err:.3e} against "
+            f"the JAX CPU result (gate 1e-4); |error|/sigma per parameter "
+            f"{np.array2string(absdiff.mean(0), precision=4)}, JAX CPU "
+            f"{np.array2string(ref.mean(0), precision=4)}, the shipped TPU file "
+            f"{np.array2string(tpu, precision=4)}; the driver {wall:.3f} s for {n} events "
+            f"({n / wall:.1f} events/s, set-up included), the head's forward on all {n} "
+            f"{forward * 1e3:.3f} ms ({n / forward:.0f} events/s); launches {launches}")
+    assert absdiff.shape == ref.shape and err <= 1e-4, err
+    assert all(v == 0 for v in launches.values()), launches
+    return dict(events_s=n / wall, forward_events_s=n / forward, wall=wall)
+
+
+def phase_contrastive(seed):
+    """Phase 13, contrastive pretraining and the regression heads. Returns
+    the keys its kernels add to the kernels line, and the worst fp32
+    errors of (c)."""
+    t_phase = time.perf_counter()
+    phase_contrastive_checkpoint()
+    train = phase_contrastive_training(seed)
+    launches, worst, t = phase_contrastive_selfattn(seed)
+    rates = phase_regression_training(seed)
+    ev = phase_regression_eval()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(13, f"train_contrastive (B = {B_CONTRA}, dropout {DROPOUT}, fp32): {train['rate']:.1f} "
+            f"samples/s, peak memory {train['peak']:.0f} MiB, device busy {train['busy']:.1%} of "
+            f"a profiled step; train_regression samples/s "
+            + ", ".join(f"{m}/{b} {r:.1f}" for (m, b), r in rates.items())
+            + f"; eval_regression {ev['events_s']:.1f} events/s (the head's forward "
+            f"{ev['forward_events_s']:.0f}); on {smi}")
+    log(13, f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    extra = {
+        "attention_fwd": {"launches_contrastive_selfattn": launches["K1"] - launches["K1 rate>0"],
+                          "ms_contrastive_selfattn": t["fwd0"],
+                          "bound_ms_contrastive_selfattn": t["b_f0"][0],
+                          "plain_ms_contrastive_selfattn": t["plain_f0"],
+                          "library_ms_contrastive_selfattn": t["lib_f0"]},
+        "attention_fwd_dropout": {"launches_contrastive_selfattn": launches["K1 rate>0"],
+                                  "ms_contrastive_selfattn": t["fwd"],
+                                  "bound_ms_contrastive_selfattn": t["b_f"][0],
+                                  "plain_ms_contrastive_selfattn": t["plain_f"],
+                                  "library_ms_contrastive_selfattn": t["lib_f"]},
+        "attention_bwd": {"launches_contrastive_selfattn": launches["K2"],
+                          "ms_contrastive_selfattn": t["bwd"],
+                          "bound_ms_contrastive_selfattn": t["b_b"][0],
+                          "plain_ms_contrastive_selfattn": t["plain_b"],
+                          "library_ms_contrastive_selfattn": t["lib_b"]},
+    }
+    return extra, worst
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -1814,7 +2255,9 @@ def main(argv=None):
             f"of a profiled suite chunk; on {smi}")
     torch.cuda.empty_cache()
     image_extra, image_errs = phase_image(args.seed)
-    for name, err in image_errs.items():
+    torch.cuda.empty_cache()
+    contrastive_extra, contrastive_errs = phase_contrastive(args.seed)
+    for name, err in (*image_errs.items(), *contrastive_errs.items()):
         errs[name] = max(errs[name], err)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
@@ -1853,8 +2296,11 @@ def main(argv=None):
     # of try_image) at the hybrid, per-pixel and MNIST grids
     # (launches_{image,pixel,mnist}), fp32 times and bounds at R = 32 there
     # (ms_, bound_ms_), K1 rate 0 at try_image's R = 400 (_image_r400), the
-    # plain version and SDPA at 900x900 (plain_ms_image, library_ms_image). The
-    # Laplace rows are at the step's [2, 192]
+    # plain version and SDPA at 900x900 (plain_ms_image, library_ms_image),
+    # and phase 13(c)'s: launches of train_contrastive model.selfattn=true
+    # (launches_contrastive_selfattn; K1 rate 0: none, it only trains) and,
+    # on its captured [32, 983, 32] key-padded input, fp32 times, bounds,
+    # plain versions and SDPA (*_contrastive_selfattn). The Laplace rows are at the step's [2, 192]
     # slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -1872,7 +2318,7 @@ def main(argv=None):
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
              **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
-             **image_extra.get(r[0], {}))
+             **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

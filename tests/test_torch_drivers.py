@@ -252,11 +252,25 @@ def test_a_multi_device_mesh_raises(tmp_path, spec):
 
 
 def test_single_device_meshes_train_and_opt_mask_raises(tmp_path):
+    """Every single-device mesh spec trains. opt_mask trains the parameters
+    it marks and leaves the rest bitwise as they were; a mask that freezes
+    every parameter, or misses one, raises."""
     for spec in ("auto", "none", "1"):
         state, losses = _loop(tmp_path / spec, argv=[f"train.mesh={spec}"])
         assert state.step == 2 and np.isfinite(losses).all()
-    with pytest.raises(NotImplementedError, match="opt_mask"):
-        _loop(tmp_path, opt_mask=lambda params: params)
+    before = {}
+
+    def photometry_only(model):
+        before.update({n: p.detach().clone() for n, p in model.named_parameters()})
+        return {n: n.startswith("vaes.0.") for n, _ in model.named_parameters()}
+
+    state, _ = _loop(tmp_path / "masked", opt_mask=photometry_only)
+    for n, p in state.model.named_parameters():
+        assert torch.equal(p, before[n]) != n.startswith("vaes.0."), n
+    with pytest.raises(ValueError, match="freezes every parameter"):
+        _loop(tmp_path, opt_mask=lambda m: {n: False for n, _ in m.named_parameters()})
+    with pytest.raises(KeyError, match="every parameter"):
+        _loop(tmp_path, opt_mask=lambda m: {"vaes.0.nope": True})
 
 
 def test_install_params_must_name_parameters(tmp_path):

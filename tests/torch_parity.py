@@ -19,6 +19,7 @@ import torch
 
 import vaesne_tpu.distributions as jdist
 import vaesne_tpu.models as jmodels
+import vaesne_tpu.objectives as jobj
 import vaesne_tpu_torch.distributions as tdist
 import vaesne_tpu_torch.models as tmodels
 from vaesne_tpu_torch.utils import init_params, load_jax_params
@@ -109,11 +110,79 @@ _EXPORTABLE = {
     "ZTFSpectraConfig": ("train_ztf_spectra", "ztf", "spectra_tuple"),
     "PhotometryVAEConfig": ("train_photometry", "goldstein", "photometry_tuple"),
     "ImageVAEConfig": ("train_image", "image", "image_tuple"),
+    "ContrastiveConfig": ("train_contrastive", "goldstein", "multimodal_tuple"),
+    "RegressionConfig": ("train_regression", "goldstein", None),
 }
 # beside a bridged image checkpoint: the JAX package's posterior-mean
 # reconstruction of REFERENCE_IMAGES, decode(encode(x)).loc, dropout off
 REFERENCE_FILE = "jax_reconstruction.npy"
 REFERENCE_IMAGES = dict(n=8, seed=0)
+# beside a bridged contrastive checkpoint: the JAX package's deterministic
+# projections z1, z2 of the test split of resolve_dataset(None, "goldstein")
+# and its symmetric InfoNCE (the CE, −neg_info_nce) over consecutive
+# batches of INFO_NCE_BATCH test events, the remainder dropped
+PROJECTIONS_FILE = "jax_projections.npz"
+INFO_NCE_BATCH = 32
+# beside a bridged regression head: the JAX package's eval_regression
+# absdiff [N_test, 4] on that test split, with the normalizing JSON that
+# sits beside the JAX checkpoint (copied beside the bridged one)
+ABSDIFF_FILE = "jax_absdiff.npy"
+NORMALIZING_FILE = "goldstein_normalizing.json"
+
+
+def regression_case(path):
+    """(modality, backbone) of a regression checkpoint directory named
+    ``goldstein_{modality}2param_{backbone}``."""
+    modality, backbone = os.path.basename(os.path.normpath(path))[len("goldstein_"):].split(
+        "2param_")
+    return modality, backbone
+
+
+def jax_regression_params(jax_dir, jc):
+    """The JAX package's regression head for ``jax_dir`` and its restored
+    parameters, through the template its eval_regression builds (the head's
+    parameters merged with the whole backbone, the masked optimizer)."""
+    import optax
+
+    import vaesne_tpu.data as jdata
+    import vaesne_tpu.utils.checkpoint as jck
+    import vaesne_tpu.utils.config as jcfg
+    from vaesne_tpu import training as jtr
+    from vaesne_tpu.experiments import train_regression as jreg
+
+    modality, backbone = regression_case(jax_dir)
+    data = jdata.make_goldstein_like(n=8, seed=0)
+    builder = (lambda: jcfg.PhotoSpectraMMVAEConfig()) if backbone == "mmvae" else (
+        lambda: jcfg.ContrastiveConfig())
+    example = jdata.multimodal_tuple(data, idx=np.arange(2))
+    key = jax.random.PRNGKey(0)
+    head, frozen = jreg.build_head(modality, backbone, builder, None,
+                                   example if backbone != "end2end" else None, key, jc)
+    x = (jdata.photometry_tuple if modality == "photometry" else jdata.spectra_tuple)(
+        data, idx=np.arange(2))
+    params = {**jtr.init_model(head, x, key, has_sample_rng=False), **(frozen or {})}
+    opt = jtr.adamw(jc.train.lr)
+    if frozen:
+        opt = optax.masked(opt, jreg.frozen_param_mask(params, frozen))
+    return head, jck.restore_checkpoint(jax_dir, jtr.TrainState.create(params, opt, key)).params
+
+
+def write_contrastive_reference(jmodel, params, out_dir, temperature):
+    """``PROJECTIONS_FILE`` for the JAX contrastive model ``jmodel``."""
+    import vaesne_tpu.data as jdata
+    from vaesne_tpu.experiments.common import resolve_dataset
+
+    data = resolve_dataset(None, "goldstein")
+    x = jdata.multimodal_tuple(data, idx=np.asarray(data["testing_idx"]))
+    variables = {"params": params}
+    z1, z2 = jmodel.apply(variables, x, True)
+    ce = []
+    for start in range(0, int(z1.shape[0]) - INFO_NCE_BATCH + 1, INFO_NCE_BATCH):
+        batch = jax.tree_util.tree_map(lambda a: a[start:start + INFO_NCE_BATCH], x)
+        ce.append(-float(jobj.neg_info_nce(jmodel, variables, batch, temperature=temperature,
+                                           deterministic=True)))
+    np.savez(os.path.join(out_dir, PROJECTIONS_FILE), z1=np.asarray(z1), z2=np.asarray(z2),
+             info_nce=np.asarray(ce, np.float32))
 
 
 def jax_image_model(cfg):
@@ -144,7 +213,11 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     checkpoint's ``_config_class`` tag, else ``config_class``. The JAX
     state is restored into an abstract template, so nothing is compiled.
     For an image VAE it also writes ``REFERENCE_FILE``: the JAX package's
-    posterior-mean reconstruction of ``reference_images``, [N, C, H, W]."""
+    posterior-mean reconstruction of ``reference_images``, [N, C, H, W];
+    for a contrastive model ``PROJECTIONS_FILE``; for a regression head
+    (a directory named ``goldstein_{modality}2param_{backbone}``) the JAX
+    eval_regression's ``ABSDIFF_FILE``, and a copy of the normalizing JSON
+    beside ``jax_dir`` into the parent of ``out_dir``."""
     import vaesne_tpu.data as jdata
     import vaesne_tpu.utils.checkpoint as jck
     import vaesne_tpu.utils.config as jcfg
@@ -156,6 +229,11 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     name = (jck.load_config(jax_dir) or {}).get("_config_class", config_class)
     driver, kind, builder = _EXPORTABLE[name]
     jc = jck.restore_config(jax_dir, jcfg.CONFIG_CLASSES[name])
+    tc = tck.restore_config(jax_dir, tcfg.CONFIG_CLASSES[name])
+    config = tcfg.asdict(tc)
+    config["_config_class"] = name
+    if name == "RegressionConfig":
+        return _export_regression(jax_dir, out_dir, jc, tc, config)
     if kind == "image":
         jmodel = jax_image_model(jc)
         example = jdata.image_tuple(reference_images(jc, n=2))
@@ -168,21 +246,47 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     template = jax.tree_util.tree_map(
         lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype, sharding=one_device),
         jax.eval_shape(lambda: jtr.TrainState.create(
-            jtr.init_model(jmodel, example, key, K=1), optimizer_from_config(jc.train), key)))
+            jtr.init_model(jmodel, example, key, K=1,
+                           has_sample_rng=name != "ContrastiveConfig"),
+            optimizer_from_config(jc.train), key)))
     params = jck.restore_checkpoint(jax_dir, template).params
 
-    tc = tck.restore_config(jax_dir, tcfg.CONFIG_CLASSES[name])
     model = importlib.import_module(f"vaesne_tpu_torch.experiments.{driver}").build_model(tc)
     load_jax_params(model, {"params": jax.tree_util.tree_map(np.asarray, params)})
-    config = tcfg.asdict(tc)
-    config["_config_class"] = name
     tck.save_params(out_dir, model, config)
+    if name == "ContrastiveConfig":
+        write_contrastive_reference(jmodel, params, out_dir, jc.temperature)
     if kind == "image":
         x = jdata.image_tuple(reference_images(jc))
         variables = {"params": params}
         z = jmodel.apply(variables, x, method="encode")
         loc = jmodel.apply(variables, z[None], x, method="decode").loc[0]
         np.save(os.path.join(out_dir, REFERENCE_FILE), np.asarray(loc, np.float32))
+    return model
+
+
+def _export_regression(jax_dir, out_dir, jc, tc, config):
+    """export_port_checkpoint of a regression head."""
+    import shutil
+    import tempfile
+
+    from vaesne_tpu.experiments import eval_regression as jeval
+    from vaesne_tpu_torch.experiments import train_regression as treg
+    from vaesne_tpu_torch.utils import checkpoint as tck
+
+    modality, backbone = regression_case(jax_dir)
+    _, params = jax_regression_params(jax_dir, jc)
+    model, _ = treg.build_head(modality, backbone, None, 0, tc)
+    load_jax_params(model, {"params": jax.tree_util.tree_map(np.asarray, params)})
+    tck.save_params(out_dir, model, config)
+    norm_dir = os.path.dirname(os.path.normpath(jax_dir))
+    with tempfile.TemporaryDirectory() as tmp:
+        absdiff = jeval.main([f"modality={modality}", f"backbone={backbone}",
+                              f"head_ckpt={jax_dir}", f"train.ckpt_dir={norm_dir}",
+                              f"out={tmp}", "mesh=none"])
+    np.save(os.path.join(out_dir, ABSDIFF_FILE), np.asarray(absdiff))
+    shutil.copyfile(os.path.join(norm_dir, NORMALIZING_FILE),
+                    os.path.join(os.path.dirname(os.path.normpath(out_dir)), NORMALIZING_FILE))
     return model
 
 

@@ -2,9 +2,9 @@
 
 A second package beside the JAX reference ``vaesne_tpu``: the serving and
 training paths of the photometry + spectra MoE-MMVAE and of the host-galaxy
-image VAE in PyTorch, with the
-JAX package's TPU kernels on those paths written by hand for Hopper in CUDA
-C++ (fused masked attention forward and backward, the masked Laplace
+image VAE, the contrastive towers and the parameter-regression heads in
+PyTorch, with the JAX package's TPU kernels on those paths written by hand
+for Hopper in CUDA C++ (fused masked attention forward and backward, the masked Laplace
 log-likelihood forward and backward), and the data layer, configs,
 checkpoints and training drivers (``data``, ``utils.config``,
 ``utils.checkpoint``, ``experiments``). Imports torch, numpy and the

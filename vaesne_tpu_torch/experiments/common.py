@@ -165,7 +165,12 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     draws it once before training instead (the reference's dynamics, with
     no gradient clip). The weights start from ``init_params`` under the
     run's seed; ``install_params`` (parameter names to tensors) then
-    overwrites some or all of them. ``init_K`` has no effect here: the
+    overwrites some or all of them. ``opt_mask(model)`` gives every
+    parameter name → trainable (the JAX package wraps the optimizer in
+    ``optax.masked``): the parameters it marks False are frozen, outside the
+    optimizer and the gradient clip (``TrainState.create``), and the
+    checkpoint holds them beside AdamW moments for the rest alone.
+    ``init_K`` has no effect here: the
     port's parameters do not depend on K (the JAX package initialises by
     running the model with it).
 
@@ -173,15 +178,11 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     config (tagged with its class), ``losses.npy`` and ``progress.json`` go
     to ``{ckpt_dir}/{ckpt_name}``; ``train.resume`` continues from there.
     ``callback(epoch, state, loss)`` runs after each epoch. The run is on
-    ``device``, by default the card; ``train.mesh`` must name one device and
-    ``opt_mask`` waits for the regression drivers (both raise otherwise).
+    ``device``, by default the card; ``train.mesh`` must name one device
+    (it raises otherwise).
     """
     device = resolve_device(device)
     _check_single_device(train_cfg.mesh)
-    if opt_mask is not None:
-        raise NotImplementedError(
-            "opt_mask (a frozen parameter subset) comes with the regression drivers "
-            "(ROADMAP.md Queue 1 item 4)")
     seed = train_cfg.seed
     init_params(model, torch.Generator().manual_seed(fold_in(seed, 0)))
     if install_params:
@@ -191,7 +192,8 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
         if unknown:
             raise KeyError(f"install_params names no parameter of the model: {unknown}")
     opt = optimizer_from_config(train_cfg)
-    state = TrainState.create(model, opt, seed=fold_in(seed, 1), device=device)
+    state = TrainState.create(model, opt, seed=fold_in(seed, 1), device=device,
+                              trainable=None if opt_mask is None else opt_mask(model))
     # train.scan_epoch picks the JAX package's program; here both are this loop
     epoch_fn = make_scan_epoch(model, opt, loss_fn, train_cfg.accum_steps,
                                train_cfg.accum_reduction, device)

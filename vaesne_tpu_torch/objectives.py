@@ -1,7 +1,8 @@
-"""Training objectives of the port: ELBO, m-ELBO and the MoE-IWAE.
+"""Training objectives of the port: ELBO, m-ELBO, the MoE-IWAE, InfoNCE and
+the regression MSE.
 
 Counterparts of ``vaesne_tpu/objectives.py`` (``grid_loglik``, ``elbo``,
-``m_elbo``, ``m_iwae_terms``, ``m_iwae``). Every objective returns a
+``m_elbo``, ``m_iwae_terms``, ``m_iwae``, ``neg_info_nce``, ``mse``). Every objective returns a
 quantity to MAXIMISE; the train step minimises its negation. The reductions
 are the JAX package's (``elbo``: mean over K·B; ``m_iwae``: log-mean-exp
 over the (modality·K) axis, then SUM over the batch), because they set the
@@ -16,7 +17,10 @@ eval mode.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from .distributions import kl_divergence, log_mean_exp
 from .utils.rng import device_generator, fold_in
@@ -100,3 +104,35 @@ def m_iwae(model, x, K: int = 1, *, seed: int) -> torch.Tensor:
     qz_xs, px_zs, zss = model(x, K, generator=generator, seed=drop)
     return m_iwae_terms(qz_xs, px_zs, zss, x, model.llik_scalings,
                         model.pz(x[0][0].device))
+
+
+def _dropout_seed(model, seed: Optional[int]) -> Optional[int]:
+    """The model's dropout seed: ``seed`` in train mode, where one is
+    required (the JAX package's key for ``deterministic=False``), None in
+    eval mode."""
+    if not model.training:
+        return None
+    if seed is None:
+        raise ValueError("need a seed for dropout in train mode")
+    return seed
+
+
+def neg_info_nce(model, x, temperature: float = 0.07, *,
+                 seed: Optional[int] = None) -> torch.Tensor:
+    """Negated symmetric InfoNCE over a two-tower model's projections
+    (z1, z2) = model(x): with each row normalised (norm clipped at 1e-12)
+    and logits = z1·z2ᵀ / temperature, −(CE(logits, I) + CE(logitsᵀ, I))/2,
+    each CE a mean over the batch. A quantity to maximise."""
+    z1, z2 = model(x, seed=_dropout_seed(model, seed))
+    z1 = z1 / torch.linalg.vector_norm(z1, dim=-1, keepdim=True).clamp_min(1e-12)
+    z2 = z2 / torch.linalg.vector_norm(z2, dim=-1, keepdim=True).clamp_min(1e-12)
+    logits = z1 @ z2.T / temperature
+    labels = torch.arange(z1.shape[0], device=z1.device)
+    return -(F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)) / 2.0
+
+
+def mse(model, x, y: torch.Tensor, *, seed: Optional[int] = None) -> torch.Tensor:
+    """Negated mean squared error of a regression head's prediction
+    model(x) against ``y``: a quantity to maximise."""
+    pred = model(x, seed=_dropout_seed(model, seed))
+    return -torch.mean((pred - y) ** 2)

@@ -20,7 +20,7 @@ present. The step runs eagerly: a CUDA graph of the step is later work.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -88,12 +88,32 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: AdamW, seed: int = 0,
-               device=None) -> "TrainState":
+               device=None, trainable: Optional[Mapping[str, bool]] = None) -> "TrainState":
         """Move ``model`` to ``device`` (default: the card), put it in train
-        mode and build its optimizer."""
+        mode and build its optimizer. ``trainable`` (every parameter name →
+        bool, the JAX package's ``optax.masked`` mask) freezes the
+        parameters it marks False: they stay out of the optimizer, so they
+        get no Adam update, no weight decay and no place in the clip's
+        norm, and they take no gradient."""
         model = model.to(resolve_device(device)).train()
-        return cls(model, optimizer.init(model.parameters()), 0,
+        params = dict(model.named_parameters())
+        if trainable is not None:
+            if set(trainable) != set(params):
+                raise KeyError(
+                    f"the trainable mask must name every parameter of the model: it lacks "
+                    f"{sorted(set(params) - set(trainable))[:3]} and names no parameter "
+                    f"{sorted(set(trainable) - set(params))[:3]}")
+            params = {n: p for n, p in params.items() if trainable[n]}
+            if not params:
+                raise ValueError("the trainable mask freezes every parameter")
+        for name, p in model.named_parameters():
+            p.requires_grad_(name in params)
+        return cls(model, optimizer.init(params.values()), 0,
                    torch.Generator().manual_seed(seed))
+
+    def trainable_parameters(self) -> List[nn.Parameter]:
+        """The parameters the optimizer updates, in its order."""
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
 
     def state_dict(self) -> dict:
         """The model's parameters, the AdamW moments, the step and the
@@ -198,9 +218,9 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
             else:
                 loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
                                             accum_reduction)
-        if optimizer.grad_clip is not None:
-            clip_by_global_norm([p.grad for p in model.parameters() if p.grad is not None],
-                                optimizer.grad_clip)
+        if optimizer.grad_clip is not None:  # over the trainable parameters alone
+            clip_by_global_norm([p.grad for p in state.trainable_parameters()
+                                 if p.grad is not None], optimizer.grad_clip)
         state.optimizer.step()
         state.step += 1
         return state, loss
