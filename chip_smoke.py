@@ -76,7 +76,17 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      train_regression.main for both modalities and the three backbones, the
      frozen backbones bitwise unchanged and outside AdamW; (e)
      eval_regression.main on the bridged goldstein_photometry2param_mmvae
-     head against the JAX package's CPU result.
+     head against the JAX package's CPU result;
+ 14. multi-GPU on the one card (vaesne_tpu_torch.parallel; spawned ranks,
+     each its own process): (a) a world-1 NCCL group's DDP flagship step
+     at B = 192 against the one-process step; (b) two ranks sharing the
+     card over gloo, 96 events each, at dropout 0 and 0.1 against the
+     one-process step, every rank's launches as the global-row dispatch
+     predicts, K1/K2 held against their plain versions on every rank's
+     captured input with its shard seed, the ranks' mask streams disjoint;
+     (c) a 1x2 tensor-parallel step (2 heads a rank); (d) DP crossmodal_ci
+     at K = 100 against one process; per-rank samples/s and peak memory
+     (two ranks on one card: not a scaling number).
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -103,6 +113,7 @@ import vaesne_tpu_torch.evaluation.harness as harness
 import vaesne_tpu_torch.nn.layers as layers
 import vaesne_tpu_torch.ops.attention as attention
 import vaesne_tpu_torch.ops.laplace as laplace
+import vaesne_tpu_torch.parallel as parallel
 from vaesne_tpu_torch import (
     InferenceServer,
     PhotometricVAE,
@@ -2138,6 +2149,302 @@ def phase_contrastive(seed):
     return extra, worst
 
 
+# -- multi-GPU on one card -----------------------------------------------------------
+
+# phase 14: the flagship step at B_TRAIN = 192 over the mesh (96 events a rank
+# on two ranks), and DP serving at K_SERVE over a ladder with bucket 64, where
+# the 982x5 cross-attention routes to K1 only with the global rows (6,400 ≥
+# 3,417; a rank's 3,200 alone would not)
+DP_BUCKETS = (8, 32, 64, 128)
+HELD_ROWS = 32  # rows of a rank's captured K1/K2 input held against the plain versions
+
+
+def one_process_step(seed, batch, dropout):
+    """(loss, parameters on the CPU) of one flagship step in this process."""
+    model = flagship(seed, dropout)
+    opt = adamw(LR)
+    state = TrainState.create(model, opt, seed=seed)
+    step = make_train_step(model, opt, m_iwae_loss, accum_reduction="sum")
+    state, loss = step(state, batch)
+    return loss.item(), {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+@contextlib.contextmanager
+def capture_kernel_input(store):
+    """Keep the first K1 call at a dropout rate above 0 on the 982x982 grid
+    as the layers hand it over: (q, k, v, mask, heads, rate, seed)."""
+    real = layers.fused_attention
+
+    def capturing(q, k, v, mask, heads, rate, seed):
+        if not store and rate > 0 and q.shape[1] == k.shape[1] == NS:
+            store.extend((q.detach().clone(), k.detach().clone(), v.detach().clone(), mask,
+                          heads, rate, seed))
+        return real(q, k, v, mask, heads, rate, seed)
+
+    layers.fused_attention = capturing
+    try:
+        yield
+    finally:
+        layers.fused_attention = real
+
+
+def hold_rank_kernels(q, k, v, mask, heads, rate, seed, phase):
+    """K1 and K2 on the first HELD_ROWS rows of a rank's captured input,
+    with the rank's seed, against their plain versions (8 rows a call; row
+    r's mask is keyed by seed + (r·heads + h)·1024): phase 3's fp32 gates,
+    forward max-abs ≤ 1e-5, gradients ≤ 1e-4 of max |plain|. Returns
+    (forward max-abs, worst gradient max-abs)."""
+    q, k, v = (t[:HELD_ROWS].contiguous() for t in (q, k, v))
+    mask = None if mask is None else mask[:HELD_ROWS].contiguous()
+    dout = randn_like(q, 1400)
+    ref, want = [], []
+    for r0 in range(0, HELD_ROWS, REF_ROWS):
+        s = slice(r0, r0 + REF_ROWS)
+        s_seed = (seed + r0 * heads * 1024) & 0xFFFFFFFF
+        m_s = None if mask is None else mask[s]
+        ref.append(attention.attention_reference(q[s], k[s], v[s], m_s, heads, rate, s_seed))
+        want.append(attention.attention_backward_reference(q[s], k[s], v[s], m_s, dout[s],
+                                                           heads, rate, s_seed))
+    ref = torch.cat(ref)
+    want = [torch.cat(w) for w in zip(*want)]
+    out, m, l = attention.fused_attention_fwd(q, k, v, mask, heads, rate, seed)
+    grads = attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, heads, rate, seed)
+    torch.cuda.synchronize()
+    err_f = (out - ref).abs().max().item()
+    rel_b = [_rel(g, w) for g, w in zip(grads, want)]
+    assert np.isfinite(err_f) and err_f <= 1e-5, err_f
+    assert all(np.isfinite(e) and e <= 1e-4 for e in rel_b), rel_b
+    return err_f, max((g - w).abs().max().item() for g, w in zip(grads, want)), rel_b
+
+
+def rank_keep_rate(seed, heads, rows=8):
+    """K1's keep rate under a rank's seed (``keep_rate_check``'s measure:
+    q = 0, v = 1): (keep, its distance from 230/256 in sigmas)."""
+    q = torch.zeros(rows, NS, heads * (MODEL_DIM // HEADS), device="cuda")
+    out = attention.fused_attention(q, q, torch.ones_like(q), None, heads, DROPOUT, seed)
+    keep = out.double().mean().item() * (1.0 - DROPOUT)
+    p, n = 230 / 256, rows * heads * NS * NS
+    return keep, abs(keep - p) / (p * (1 - p) / n) ** 0.5
+
+
+def all_ranks(values):
+    """``values`` (a list of floats) of every rank, one row per rank: an
+    all-reduce of a zeroed [world, n] tensor on this rank's device."""
+    import torch.distributed as dist
+
+    world, r = dist.get_world_size(), dist.get_rank()
+    t = torch.zeros(world, len(values), dtype=torch.float64, device="cuda")
+    t[r] = torch.tensor(values, dtype=torch.float64)
+    dist.all_reduce(t)
+    return t.cpu().tolist()
+
+
+def rank_step(seed, batch, dropout, steps=1, hold=True):
+    """A rank of phase 14: ``steps`` flagship steps on the global batch
+    over this rank's mesh (tensor-parallel where its model axis is > 1),
+    the kernels' launches of the first step counted from 0. Returns the
+    first step's loss, the whole parameters after it, every rank's
+    launches, the captured K1 input's seed, rows, heads and keep rate, the
+    time of the last step, the peak memory and (with ``hold``) the errors
+    of K1/K2 held on each rank's captured input with that rank's seed (a
+    rank whose kernels disagree raises, and fails the launch)."""
+    mesh = parallel.current_mesh()
+    model = flagship(seed, dropout)
+    opt = adamw(LR)
+    state = TrainState.create(model, opt, seed=seed)
+    if mesh.model > 1:
+        parallel.shard_state_tp(state, mesh)
+    step = make_train_step(model, opt, m_iwae_loss, accum_reduction="sum", mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store = []
+    reset_counts()
+    with capture_kernel_input(store):
+        state, loss = step(state, batch)
+        loss = loss.item()
+    counts = kernel_counts()
+    params = {k: v.detach().cpu() for k, v in
+              parallel.gather_state_tp(state, mesh)["model"].items()}
+    times = []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        state, l = step(state, batch)
+        l.item()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    held = hold_rank_kernels(*store, phase=14) if store and hold else None
+    seed_k1 = store[6] if store else None
+    rows_k1, heads_k1 = (store[0].shape[0], store[4]) if store else (0, 0)
+    keep = rank_keep_rate(seed_k1, heads_k1) if store else (0.0, 0.0)
+    errs = [held[0], held[1], max(held[2])] if held else [-1.0, -1.0, -1.0]
+    table = all_ranks([*counts, -1 if seed_k1 is None else seed_k1, rows_k1, heads_k1, *keep,
+                       peak, times[-1] if times else 0.0, *errs])
+    return loss, params, table
+
+
+def tp_ranks_program(seed, batch):
+    """Phase 14 (c) on both ranks of the 1x2 mesh: the step at dropout 0
+    and 0.1."""
+    return rank_step(seed, batch, 0.0), rank_step(seed, batch, DROPOUT, steps=2)
+
+
+def dp_ranks_program(seed, batch, photo, spec):
+    """Phase 14 (b) and (d) on both ranks of the 2x1 mesh: the step at
+    dropout 0 and 0.1, then DP serving."""
+    b0 = rank_step(seed, batch, 0.0)
+    b1 = rank_step(seed, batch, DROPOUT, steps=2)
+    mesh = parallel.current_mesh()
+    server = InferenceServer(flagship(seed), buckets=DP_BUCKETS, seed=seed, mesh=mesh)
+    served = {}
+    for n, bucket in ((20, 32), (60, 64)):
+        g = torch.Generator("cuda").manual_seed(seed)
+        server.crossmodal_ci(tuple(a[:n] for a in photo), tuple(a[:n] for a in spec),
+                             K=K_SERVE, generator=g)  # builds nothing new; warms the allocator
+        torch.cuda.synchronize()
+        reset_counts()
+        g = torch.Generator("cuda").manual_seed(seed)
+        t0 = time.perf_counter()
+        out = server.crossmodal_ci(tuple(a[:n] for a in photo), tuple(a[:n] for a in spec),
+                                   K=K_SERVE, generator=g)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        served[bucket] = ([t.cpu() for t in out], all_ranks([attention.launches, dt]))
+    return b0, b1, served
+
+
+def _params_close(got, want):
+    """max |got − want| over max |want|, over every parameter."""
+    return (max((got[k] - want[k]).abs().max().item() for k in want)
+            / max(w.abs().max().item() for w in want.values()))
+
+
+def _check_step(label, loss, params, want_loss, want_params, rtol, ptol):
+    rel_loss = abs(loss - want_loss) / abs(want_loss)
+    rel_params = _params_close(params, want_params)
+    bitwise = loss == want_loss and all(torch.equal(params[k], want_params[k])
+                                        for k in want_params)
+    log(14, f"{label}: loss {loss:.6f} against one process {want_loss:.6f} (relative "
+            f"{rel_loss:.3e}); parameters after the step within {rel_params:.3e} of max |param|"
+            f"{' (bitwise equal)' if bitwise else ''}")
+    assert bitwise or (rel_loss <= rtol and rel_params <= ptol), (label, rel_loss, rel_params)
+
+
+def _check_launches(label, table, want):
+    for r, row in enumerate(table):
+        got = tuple(int(x) for x in row[:5])
+        log(14, f"{label} rank {r}: launches {dict(zip(COUNTERS, got))} (predicted "
+                f"{dict(zip(COUNTERS, want))})")
+        assert got == want, (label, r, got, want)
+    return [tuple(int(x) for x in row[:5]) for row in table]
+
+
+def _check_masks(label, table):
+    """Each rank's K1 keep rate within 4 sigma of 230/256, the ranks' block
+    seeds [seed, seed + rows·heads·1024) disjoint, and each rank's K1/K2
+    held on its own captured input with its own seed (``rank_step``).
+    Returns the worst forward and gradient max-abs errors over the ranks."""
+    spans = []
+    for r, row in enumerate(table):
+        seed, rows, heads, keep, sigmas = int(row[5]), int(row[6]), int(row[7]), row[8], row[9]
+        log(14, f"{label} rank {r}: K1 seed {seed} over [{rows}, {NS}, {NS}] x {heads} heads, "
+                f"keep rate {keep:.6f} ({sigmas:.2f} sigma)")
+        assert sigmas <= 4, (label, r, keep)
+        spans.append((seed, seed + rows * heads * 1024))
+    for (a0, a1), (b0, b1) in zip(spans, spans[1:]):
+        assert a1 <= b0 or b1 <= a0, (label, spans)
+    for r, row in enumerate(table):
+        err_f, err_b, rel_b = row[12:15]
+        assert err_f >= 0, (label, r, "no K1/K2 input captured")
+        log(14, f"{label} rank {r}: K1/K2 on its captured input ({HELD_ROWS} rows, seed "
+                f"{int(row[5])}) against the plain versions: forward max-abs {err_f:.3e}, "
+                f"gradients max-abs {err_b:.3e} (worst of dq, dk, dv relative {rel_b:.2e})")
+    return max(row[12] for row in table), max(row[13] for row in table)
+
+
+def phase_multigpu(seed):
+    """Phase 14, multi-GPU on one card (``parallel``): (a) a world-1 NCCL
+    group runs the DDP flagship step at B = 192, equal to the one-process
+    step; (b) two ranks share the card over gloo, 96 events each, at
+    dropout 0 and 0.1 (against the one-process step: loss within 1e-4
+    relative, parameters within 1e-3 of max |param|; at 0.1 every rank's
+    launches as predicted with global rows, K1/K2 held against their plain
+    versions on every rank's captured input with its shard seed, the
+    ranks' masks disjoint streams); (c) a 1x2 tensor-parallel step (2 heads of packed
+    width 16 a rank), at dropout 0 against one process and at 0.1 with K1/K2
+    held; (d) DP crossmodal_ci at K = 100 over the two ranks against one
+    process on the same generator, within 1e-5 relative, K1 launches per
+    rank as global-row routing predicts. Returns the per-rank launches and
+    the worst K1/K2 errors."""
+    t_phase = time.perf_counter()
+    # a rank that hangs fails the phase within the script's time limit
+    parallel.mesh.LAUNCH_TIMEOUT, parallel.mesh.GROUP_TIMEOUT = 420.0, 300.0
+    torch.cuda.empty_cache()
+    batch = make_batch(B_TRAIN, seed + 14)
+    photo, spec = make_batch(64, seed + 15)
+    loss0, params0 = one_process_step(seed, to_device(batch, torch.device("cuda")), 0.0)
+    loss1, params1 = one_process_step(seed, to_device(batch, torch.device("cuda")), DROPOUT)
+    pred0, pred1 = (train_step_prediction(B_TRAIN, d) for d in (0.0, DROPOUT))
+    res = {}
+
+    world1 = parallel.make_mesh(["cuda:0"])
+    assert world1.backend == "nccl", world1
+    loss, params, table = parallel.launch(rank_step, world1, seed, batch, DROPOUT, 1, False)
+    _check_step("(a) world-1 NCCL DDP step, dropout 0.1", loss, params, loss1, params1, 1e-6,
+                1e-6)
+    res["nccl"] = _check_launches("(a)", table, pred1)
+
+    two = parallel.make_mesh(["cuda:0", "cuda:0"])
+    assert two.backend == "gloo", two
+    b0, b1, served = parallel.launch(dp_ranks_program, two, seed, batch, photo, spec)
+    _check_step("(b) 2 ranks, dropout 0", b0[0], b0[1], loss0, params0, 1e-4, 1e-3)
+    _check_launches("(b) dropout 0", b0[2], pred0)
+    # each rank's K1 masks are its rows' block of the one process's (shard
+    # seed) and its generator draws its part of the whole step's
+    _check_step("(b) 2 ranks, dropout 0.1", b1[0], b1[1], loss1, params1, 1e-4, 1e-3)
+    res["dp"] = _check_launches("(b) dropout 0.1", b1[2], pred1)
+    worst = _check_masks("(b)", b1[2])
+
+    tp = parallel.make_mesh(["cuda:0", "cuda:0"], data=1, model=2)
+    c0, c1 = parallel.launch(tp_ranks_program, tp, seed, batch)
+    _check_step("(c) 1x2 tensor parallel, dropout 0", c0[0], c0[1], loss0, params0, 1e-4, 1e-3)
+    res["tp"] = _check_launches("(c) dropout 0.1", c1[2], pred1)
+    assert all(int(row[7]) == HEADS // 2 for row in c1[2])  # 2 heads of width 16 a rank
+    assert np.isfinite(c1[0]), c1[0]  # TP head shards draw other (equally valid) masks
+    tp_worst = _check_masks("(c)", c1[2])
+    worst = tuple(max(a, b) for a, b in zip(worst, tp_worst))
+
+    server = InferenceServer(flagship(seed), buckets=DP_BUCKETS, seed=seed)
+    res["serving"] = []
+    for n, bucket in ((20, 32), (60, 64)):
+        g = torch.Generator("cuda").manual_seed(seed)
+        want = server.crossmodal_ci(tuple(a[:n] for a in photo), tuple(a[:n] for a in spec),
+                                    K=K_SERVE, generator=g)
+        got, table = served[bucket]
+        rel = max(_rel(x.cuda(), w) for x, w in zip(got, want))
+        predicted = encoder_launches(0, bucket) + decoder_launches(1, K_SERVE * bucket)
+        local = encoder_launches(0, bucket // 2) + decoder_launches(1, K_SERVE * bucket // 2)
+        launches = [int(row[0]) for row in table]
+        log(14, f"(d) crossmodal_ci K={K_SERVE} n={n} (bucket {bucket}) on 2 ranks: within "
+                f"{rel:.3e} of one process; K1 launches per rank {launches} (predicted "
+                f"{predicted} with the global rows, {local} with a rank's own); "
+                + ", ".join(f"rank {r} {row[1] * 1e3:.1f} ms, {n / 2 / row[1]:.1f} events/s"
+                            for r, row in enumerate(table)))
+        assert rel <= 1e-5, (bucket, rel)
+        assert launches == [predicted] * 2, (bucket, launches, predicted)
+        res["serving"].append(launches)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    for label, table, events in (("(b) DP 2x1", b1[2], B_TRAIN // 2),
+                                 ("(c) TP 1x2", c1[2], B_TRAIN)):
+        log(14, f"{label}, two ranks on one card, B = {B_TRAIN}, dropout {DROPOUT}, fp32: "
+                + "; ".join(f"rank {r}: {events} events a step, {row[11] * 1e3:.1f} ms = "
+                            f"{events / row[11]:.1f} samples/s, peak memory {row[10]:.0f} MiB"
+                            for r, row in enumerate(table))
+                + f" (not a scaling number); on {smi}")
+    log(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return res, worst
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -2259,6 +2566,9 @@ def main(argv=None):
     contrastive_extra, contrastive_errs = phase_contrastive(args.seed)
     for name, err in (*image_errs.items(), *contrastive_errs.items()):
         errs[name] = max(errs[name], err)
+    multi, (err_f, err_b) = phase_multigpu(args.seed)
+    errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], err_f)
+    errs["attention_bwd"] = max(errs["attention_bwd"], err_b)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -2300,8 +2610,12 @@ def main(argv=None):
     # and phase 13(c)'s: launches of train_contrastive model.selfattn=true
     # (launches_contrastive_selfattn; K1 rate 0: none, it only trains) and,
     # on its captured [32, 983, 32] key-padded input, fp32 times, bounds,
-    # plain versions and SDPA (*_contrastive_selfattn). The Laplace rows are at the step's [2, 192]
-    # slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
+    # plain versions and SDPA (*_contrastive_selfattn), and phase 14's per-rank
+    # launches of one step at dropout 0.1: launches_nccl_world1,
+    # launches_dp_rank{0,1} (2x1, 96 events a rank), launches_tp_rank{0,1}
+    # (1x2), and on attention_fwd K1 at rate 0 per rank of DP crossmodal_ci
+    # at buckets 32 and 64 (launches_dp_serving_rank{0,1}). The Laplace
+    # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
@@ -2314,11 +2628,19 @@ def main(argv=None):
                 extra.update({f"ms{d}_{k * b}": r[f"k{n}"], f"bound_ms{d}_{k * b}": r[f"b{n}"][0],
                               f"torch_sum_ms{d}_{k * b}": r["sum"],
                               f"host_ms{d}_{k * b}": r[f"host{n}"]})
+    column = {"attention_fwd_dropout": 0, "attention_bwd": 2, "laplace_fwd": 3, "laplace_bwd": 4}
+    multi_extra = {name: {"launches_nccl_world1": multi["nccl"][0][c],
+                          **{f"launches_{kind}_rank{r}": multi[kind][r][c]
+                             for kind in ("dp", "tp") for r in (0, 1)}}
+                   for name, c in column.items()}
+    multi_extra["attention_fwd"] = {f"launches_dp_serving_rank{r}": sum(
+        launches[r] for launches in multi["serving"]) for r in (0, 1)}
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
              **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
-             **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}))
+             **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}),
+             **multi_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,7 +35,7 @@ from vaesne_tpu_torch.training import make_scan_epoch, train_epoch
 from vaesne_tpu_torch.utils import load_jax_params, to_jax_params
 from vaesne_tpu_torch.utils import config as tcfg
 
-from torch_parity import fixed_noise  # noqa: F401
+from torch_parity import fixed_noise, rank_deadlines  # noqa: F401
 
 TINY = ["model.latent_len=2", "model.latent_dim=2", "model.model_dim=16", "model.ff_dim=16",
         "model.num_layers=1", "model.num_heads=2"]
@@ -241,14 +241,28 @@ def _loop(tmp_path, **kw):
     data = make_goldstein_like(n=10, seed=0, spectrum_bins=24, photometry_length=8)
     return common.train_loop(
         train_photospectra.build_model(cfg), multimodal_tuple(data, device="cpu"),
-        lambda m, b, s: tobj.m_iwae(m, b, 2, seed=s), cfg.train, log=False,
+        tobj.as_loss(tobj.m_iwae, K=2), cfg.train, log=False,
         device=kw.pop("device", "cpu"), **kw)
 
 
 @pytest.mark.parametrize("spec", ["4", "2x2", "8x1"])
 def test_a_multi_device_mesh_raises(tmp_path, spec):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        _loop(tmp_path, argv=[f"train.mesh={spec}"])
+    """A mesh whose data axis divides the batch (4 events) trains on gloo
+    ranks, data-parallel ("4") or with Megatron tensor parallelism
+    ("2x2"), and follows the one-process run; one that does not ("8x1")
+    raises the JAX package's error before any rank starts."""
+    if spec == "8x1":
+        with pytest.raises(ValueError, match="not divisible by the mesh data axis"):
+            _loop(tmp_path, argv=[f"train.mesh={spec}"])
+        return
+    state, losses = _loop(tmp_path / spec, argv=[f"train.mesh={spec}"])
+    one, one_losses = _loop(tmp_path / "none", argv=["train.mesh=none"])
+    assert state.step == one.step == 2
+    np.testing.assert_allclose(losses, one_losses, rtol=2e-4)
+    saved = torch.load(tmp_path / spec / "model" / "state.pt", weights_only=True)["model"]
+    for name, p in state.model.state_dict().items():
+        assert torch.equal(saved[name], p), name  # whole parameters, from rank 0
+        assert p.shape == one.model.state_dict()[name].shape
 
 
 def test_single_device_meshes_train_and_opt_mask_raises(tmp_path):

@@ -19,10 +19,12 @@ import vaesne_tpu_torch.models as tmodels
 from vaesne_tpu_torch import InferenceServer, TrainState, adamw
 from vaesne_tpu_torch.data import make_goldstein_like
 from vaesne_tpu_torch.experiments import eval_goldstein, eval_masking, train_photospectra
+from vaesne_tpu_torch.parallel import launch, resolve_mesh
 from vaesne_tpu_torch.utils import checkpoint as tck
 from vaesne_tpu_torch.utils import fold_in, init_params
 from vaesne_tpu_torch.utils.config import PhotoSpectraMMVAEConfig, SpectraVAEConfig
 
+import torch_dp_workers
 from torch_parity import (  # noqa: F401
     SMALL,
     export_port_checkpoint,
@@ -31,6 +33,7 @@ from torch_parity import (  # noqa: F401
     jx,
     make_batch,
     make_pair,
+    rank_deadlines,
     tx,
 )
 
@@ -132,9 +135,25 @@ def test_batched_apply_gives_each_chunk_its_own_stream():
 
 @pytest.mark.parametrize("mesh", ["2", "2x2", 4])
 def test_batched_apply_runs_on_one_device(mesh):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        teval.batched_apply(lambda c: c, torch.zeros(4), 2, mesh=mesh)
-    assert teval.batched_apply(lambda c: c, torch.zeros(4), 2, mesh="1").shape == (4,)
+    """The single-device specs resolve to one process; a mesh whose data
+    axis divides the chunk runs on the ranks of that mesh and gives the one
+    process's result, each rank running its share of every chunk; one that
+    does not raises the JAX package's error; outside its ranks a mesh
+    raises."""
+    data = torch.arange(10.0)
+    one = resolve_mesh("1", device="cpu")
+    assert teval.batched_apply(lambda c: c, torch.zeros(4), 2, mesh=one).shape == (4,)
+    if mesh == 4:
+        with pytest.raises(ValueError, match="batch dim 2 not divisible by data axis 4"):
+            teval.batched_apply(lambda c: c, torch.zeros(4), 2,
+                                mesh=resolve_mesh(str(mesh), device="cpu"))
+        return
+    with pytest.raises(ValueError, match="not a rank of the"):
+        teval.batched_apply(lambda c: c, torch.zeros(4), 2,
+                            mesh=resolve_mesh(mesh, device="cpu"))
+    want = torch_dp_workers.apply(data, 4)
+    got = launch(torch_dp_workers.apply, resolve_mesh(mesh, device="cpu"), data, 4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # -- the suite and the sweep against the JAX harness ----------------------------
@@ -304,8 +323,8 @@ def test_config_for_rebuilds_the_trained_architecture(trained):
 def test_eval_drivers_refuse_what_they_cannot_run(trained, monkeypatch, driver):
     npz, ckpt, root = trained
     argv = [f"data={npz}", "K=2", f"out={root / 'refused'}"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        driver.main(argv + [f"mm_ckpt={ckpt}", "mesh=2"], device="cpu")
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
+        driver.main(argv + [f"mm_ckpt={ckpt}", "mesh=3"], device="cpu")  # chunks of 64 / 32
     with pytest.raises(ValueError, match="JAX \\(Orbax\\) checkpoint"):
         driver.main(argv + [f"mm_ckpt={ORBAX}"], device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

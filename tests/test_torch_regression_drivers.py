@@ -31,7 +31,12 @@ from vaesne_tpu_torch.training import make_train_step
 from vaesne_tpu_torch.utils import fold_in, load_jax_params, to_jax_params
 from vaesne_tpu_torch.utils import config as tcfg
 
-from torch_parity import ABSDIFF_FILE, NORMALIZING_FILE, export_port_checkpoint
+from torch_parity import (  # noqa: F401
+    ABSDIFF_FILE,
+    NORMALIZING_FILE,
+    export_port_checkpoint,
+    rank_deadlines,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARTIFACTS = os.path.join(REPO, "artifacts")
@@ -303,12 +308,21 @@ def test_eval_regression_reads_the_normalizing_json(tmp_path):
 
 @pytest.mark.parametrize("spec", ["4", "2x2"])
 def test_eval_regression_refuses_a_multi_device_mesh(tmp_path, spec):
-    for ok in ("auto", "none", "1"):
-        eval_regression.main(["backbone=end2end", f"mesh={ok}", f"data={_npz(tmp_path)}",
-                              f"out={tmp_path / 'res'}"], device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        eval_regression.main(["backbone=end2end", f"mesh={spec}", f"data={_npz(tmp_path)}",
-                              f"out={tmp_path / 'res'}"], device="cpu")
+    """The single-device specs run in one process; a multi-rank mesh (its
+    data axis divides the 256-event chunk) runs on gloo ranks and gives
+    the one process's |error|, and rank 0 writes the file; a data axis
+    that does not divide the chunk raises the JAX package's error."""
+    one = [eval_regression.main(["backbone=end2end", f"mesh={ok}", f"data={_npz(tmp_path)}",
+                                 f"out={tmp_path / 'res'}"], device="cpu")
+           for ok in ("auto", "none", "1")][-1]
+    got = eval_regression.main(["backbone=end2end", f"mesh={spec}", f"data={_npz(tmp_path)}",
+                                f"out={tmp_path / spec}"], device="cpu")
+    np.testing.assert_allclose(got, one, rtol=0, atol=1e-5)
+    saved = np.load(tmp_path / spec / "avg_absdiff_photometry2goldstein_param_end2end.npz")
+    np.testing.assert_array_equal(saved["absdiff"], got)
+    with pytest.raises(ValueError, match="not divisible by data axis 3"):
+        eval_regression.main(["backbone=end2end", "mesh=3", f"data={_npz(tmp_path)}"],
+                             device="cpu")
 
 
 def test_the_new_drivers_need_a_card_unless_the_cpu_is_asked(tmp_path, monkeypatch):

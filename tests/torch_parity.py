@@ -101,6 +101,21 @@ def fixed_noise(monkeypatch):
     monkeypatch.setattr(tdist.Laplace, "sample", torch_sample)
 
 
+# seconds a test's spawned ranks may run, and a collective may wait for its peers
+RANKS_DEADLINE, COLLECTIVE_DEADLINE = 240.0, 60.0
+
+
+@pytest.fixture(autouse=True)
+def rank_deadlines(monkeypatch):
+    """Deadlines for the ranks a test spawns (``parallel.launch``), so a
+    hang fails the test rather than the suite; autouse in each module that
+    imports it."""
+    import vaesne_tpu_torch.parallel.mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "LAUNCH_TIMEOUT", RANKS_DEADLINE)
+    monkeypatch.setattr(tmesh, "GROUP_TIMEOUT", COLLECTIVE_DEADLINE)
+
+
 # a checkpoint's config class → (the driver module that builds its model in
 # either package, its data kind, its tuple builder)
 _EXPORTABLE = {

@@ -7,7 +7,9 @@ PyTorch, with the JAX package's TPU kernels on those paths written by hand
 for Hopper in CUDA C++ (fused masked attention forward and backward, the masked Laplace
 log-likelihood forward and backward), and the data layer, configs,
 checkpoints and training drivers (``data``, ``utils.config``,
-``utils.checkpoint``, ``experiments``). Imports torch, numpy and the
+``utils.checkpoint``, ``experiments``), over one card or a mesh of
+``torch.distributed`` ranks (``parallel``: data and Megatron tensor
+parallelism). Imports torch, numpy and the
 standard library only; the kernels are built with nvcc at their first use
 on a card.
 """

@@ -6,7 +6,9 @@ with a ``torch.Generator`` where JAX threads a PRNG key, and ``map`` to apply
 one tensor function to every array a distribution holds (the JAX package's
 ``tree_map`` over the pytree). Defaults everywhere are Laplace.
 ``MaskedGridLaplace.grid_loglik`` routes grids of 128 points or more to the
-masked Laplace kernels (``ops/laplace.py``).
+masked Laplace kernels (``ops/laplace.py``). Every draw goes through
+``draw_events``, which on an event shard keeps this rank's part of the
+global batch's draw.
 """
 
 from __future__ import annotations
@@ -17,10 +19,27 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .ops import partition
 from .ops.dispatch import laplace_routes_to_kernel
 from .ops.laplace import masked_laplace_loglik, masked_laplace_loglik_reference
 
 Shape = Tuple[int, ...]
+EVENT_AXIS = 1  # of every draw: [K, B, ...] posterior and likelihood samples, [N, B, ...] prior
+
+
+def draw_events(draw: Callable[[Shape], torch.Tensor], shape: Shape) -> torch.Tensor:
+    """``draw(shape)``; on one of several event shards (``ops.partition``)
+    the draw for the global batch, of which this rank keeps its events, so
+    every rank consumes the generator as one process does and the ranks'
+    samples are the one process's, event for event."""
+    s = partition.active()
+    if s is None or s.n_data == 1:
+        return draw(shape)
+    if len(shape) <= EVENT_AXIS:
+        raise ValueError(f"a draw of shape {shape} has no event axis {EVENT_AXIS}")
+    local = shape[EVENT_AXIS]
+    full = shape[:EVENT_AXIS] + (local * s.n_data,) + shape[EVENT_AXIS + 1:]
+    return draw(full).narrow(EVENT_AXIS, s.data_rank * local, local)
 
 
 def _as_shape(sample_shape: Union[int, Sequence[int]]) -> Shape:
@@ -58,7 +77,8 @@ class Laplace:
         shape = _as_shape(sample_shape) + self.batch_shape
         dtype = torch.promote_types(self.loc.dtype, self.scale.dtype)
         eps = torch.finfo(dtype).eps
-        u = torch.rand(shape, generator=generator, dtype=dtype, device=self.loc.device)
+        u = draw_events(lambda full: torch.rand(full, generator=generator, dtype=dtype,
+                                                device=self.loc.device), shape)
         u = (eps - 1.0) + (2.0 - eps) * u
         return self.loc - self.scale * torch.sign(u) * torch.log1p(-torch.abs(u))
 
@@ -93,8 +113,9 @@ class Normal:
     def sample(self, generator: Optional[torch.Generator] = None,
                sample_shape: Union[int, Sequence[int]] = ()) -> torch.Tensor:
         shape = _as_shape(sample_shape) + self.batch_shape
-        noise = torch.randn(shape, generator=generator, dtype=self.loc.dtype,
-                            device=self.loc.device)
+        noise = draw_events(lambda full: torch.randn(full, generator=generator,
+                                                     dtype=self.loc.dtype,
+                                                     device=self.loc.device), shape)
         return self.loc + self.scale * noise
 
     @property

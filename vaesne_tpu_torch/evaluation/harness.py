@@ -1,5 +1,5 @@
 """Quantitative evaluation harness of the port: the test set in fixed-size
-chunks on one card.
+chunks on the card, or split over the ranks of a mesh.
 
 The counterpart of ``vaesne_tpu/evaluation/harness.py``, mirroring the
 reference's ``cannon/test/goldstein/`` scripts:
@@ -14,7 +14,9 @@ brings its outputs back as host numpy arrays, so the whole table (K = 100
 draws of every test event) never has to stay on the card. Chunk i draws its
 posterior noise from ``fold_in(seed, i)``: the K-sample bands are not
 correlated across the test set. Every entry point runs on ``device``, by
-default the card (it raises without one unless ``device="cpu"``).
+default the card (it raises without one unless ``device="cpu"``). Under a
+``mesh`` (inside ``parallel.launch``) each chunk's events are split over
+the ranks and the outputs assembled on every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from ..experiments.common import _check_single_device
+from ..ops import partition
+from ..parallel.mesh import Mesh, rank_device, shard_batch, shard_of
 from ..training import resolve_device, to_device
 from ..utils.rng import device_generator, fold_in
 from .metrics import aggregate_metrics
@@ -52,12 +55,23 @@ def _cat(parts, axis: int):
     return torch.cat(parts, dim=axis)
 
 
+def _gather(leaf, axis: int, mesh: Mesh):
+    """A rank's output leaf with every rank's events along ``axis``, as
+    numpy where it came as numpy."""
+    host = isinstance(leaf, np.ndarray)
+    t = torch.from_numpy(leaf) if host else leaf
+    if mesh.backend == "nccl":
+        t = t.to(rank_device(mesh))
+    out = partition.gather_events(t, axis, shard_of(mesh))
+    return out.cpu().numpy() if host else out.to(leaf.device)
+
+
 def batched_apply(
     fn: Callable,
     data,
     chunk_size: int,
     out_axes=0,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
     unpad_to: Optional[int] = None,
     seed: Optional[int] = None,
 ):
@@ -73,9 +87,13 @@ def batched_apply(
     never guessed.
 
     With ``seed``, fn is called as ``fn(chunk, fold_in(seed, chunk_index))``
-    so every chunk draws its own sample stream. ``mesh`` must name one
-    device ('auto', 'none' or '1'); the port runs on one card."""
-    _check_single_device(mesh)
+    so every chunk draws its own sample stream. ``mesh`` (a ``parallel``
+    Mesh this process is a rank of; the drivers resolve their specs): each
+    chunk's events are split over the data axis, which must divide
+    ``chunk_size`` (``shard_batch``), fn runs this rank's part (its draws the
+    rank's part of the whole chunk's, ``distributions.draw_events``), and
+    the outputs are assembled on every rank."""
+    shard = None
     n = _first_leaf(data).shape[0]
     rem = (-n) % chunk_size
     if rem:
@@ -83,7 +101,14 @@ def batched_apply(
     outs = []
     for ci, start in enumerate(range(0, n + rem, chunk_size)):
         chunk = _map(lambda a: a[start:start + chunk_size], data)
-        outs.append(fn(chunk) if seed is None else fn(chunk, fold_in(seed, ci)))
+        if mesh is not None:
+            chunk, shard = shard_batch(chunk, mesh), shard_of(mesh)
+        with partition.sharded(shard):
+            out = fn(chunk) if seed is None else fn(chunk, fold_in(seed, ci))
+        if mesh is not None:
+            axes = _map(lambda _: out_axes, out) if isinstance(out_axes, int) else out_axes
+            out = _map(lambda axis, leaf: _gather(leaf, axis, mesh), axes, out)
+        outs.append(out)
 
     if isinstance(out_axes, int):
         axis = out_axes

@@ -16,6 +16,7 @@ stopping, and resuming gives the run that never stopped.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Any, Callable, Mapping, Optional
@@ -32,12 +33,15 @@ from ..data import (
     spectra_tuple,
 )
 from ..data.validate import validate_npz
+from ..parallel import current_mesh, gather_state_tp, launch, resolve_mesh, shard_state_tp
+from ..parallel.mesh import rank, rank_device, to_host, torchrun_world
 from ..training import (
     TrainState,
     _leaves,
     adamw,
     make_scan_epoch,
     resolve_device,
+    to_device,
 )
 from ..utils.checkpoint import (
     check_format,
@@ -50,10 +54,6 @@ from ..utils.config import asdict
 from ..utils.plotting import plot_loss_curve
 from ..utils.rng import device_generator, fold_in
 from ..utils.weights import init_params
-
-# the mesh specs that mean one device; multi-GPU is Queue 1 item 6 of
-# ROADMAP.md
-SINGLE_DEVICE_MESHES = ("auto", "none", "1")
 
 
 def resolve_dataset(path: Optional[str], kind: str = "goldstein", n_synthetic: int = 512,
@@ -98,14 +98,49 @@ def optimizer_from_config(train_cfg):
                  b2=train_cfg.b2, grad_clip=grad_clip)
 
 
-def _check_single_device(spec) -> None:
-    """Raise unless the mesh spec (``train.mesh``, or an eval driver's
-    ``mesh=``) names one device."""
-    if str(spec).strip().lower() not in SINGLE_DEVICE_MESHES:
-        raise NotImplementedError(
-            f"mesh={spec!r} asks for several devices; the PyTorch port runs on one "
-            f"card (mesh 'auto', 'none' or '1') until multi-GPU support lands "
-            f"(ROADMAP.md Queue 1 item 6)")
+def _given(mask, model):
+    return mask
+
+
+def _picklable(**objects) -> None:
+    """Raise, naming it, where an object a spawned rank needs does not
+    pickle (a lambda or a function defined inside another)."""
+    import pickle
+
+    for name, obj in objects.items():
+        try:
+            pickle.dumps(obj)
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            raise ValueError(
+                f"{name} must pickle to run on spawned ranks (a module-level function or a "
+                f"functools.partial of one), or run the driver under torchrun: {e}") from e
+
+
+def _train_rank(model, train_data, loss_fn, train_cfg, kwargs):
+    """One spawned rank of ``train_loop``: train, then hand back the whole
+    state (gathered over a tensor-parallel model group) on the CPU."""
+    state, losses = train_loop(model, train_data, loss_fn, train_cfg, **kwargs)
+    return to_host(gather_state_tp(state, current_mesh())), losses
+
+
+def _eval_rank(run: Callable, argv, device):
+    mesh = current_mesh()
+    return run(argv, rank_device(mesh), mesh)
+
+
+def run_evaluation(run: Callable, argv, device, mesh_spec, chunk_size: int):
+    """``run(argv, device, mesh)`` (an evaluation driver's body, a
+    module-level function) on one process, or on every rank of the mesh
+    ``mesh_spec`` resolves to for chunks of ``chunk_size`` events (the JAX
+    drivers' ``resolve_mesh(spec, batch_size=chunk)``); rank 0's result.
+    The chunk must shard evenly over the data axis."""
+    device = resolve_device(device)
+    mesh = resolve_mesh(mesh_spec, batch_size=chunk_size, device=device)
+    if mesh is not None and chunk_size % mesh.data:
+        raise ValueError(f"batch dim {chunk_size} not divisible by data axis {mesh.data}")
+    if mesh is None or current_mesh() == mesh:
+        return run(argv, device if mesh is None else rank_device(mesh), mesh)
+    return launch(_eval_rank, mesh, run, argv, device)
 
 
 def _epoch_seeds(seed: int, epoch: int):
@@ -178,11 +213,50 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     config (tagged with its class), ``losses.npy`` and ``progress.json`` go
     to ``{ckpt_dir}/{ckpt_name}``; ``train.resume`` continues from there.
     ``callback(epoch, state, loss)`` runs after each epoch. The run is on
-    ``device``, by default the card; ``train.mesh`` must name one device
-    (it raises otherwise).
+    ``device``, by default the card.
+
+    ``train.mesh`` (``parallel.resolve_mesh``) spreads the run over ranks:
+    "N" is data parallelism over N ranks, "DxM" adds Megatron tensor
+    parallelism over M. Every rank trains on its slice of each batch, rank
+    0 alone writes the checkpoint, logs and runs ``callback``, and the
+    returned state is rank 0's, whole. The other ranks wait for rank 0's
+    checkpoint and ``callback`` at the next step's all-reduce, for as long
+    as the group's timeout allows (``parallel.mesh.GROUP_TIMEOUT``, by
+    default torch's: 30 min for gloo). Outside a rank the ranks are
+    spawned (``parallel.launch``; ``loss_fn``, ``augment_fn`` and
+    ``callback`` must then pickle) and their result is loaded into
+    ``model``; under ``torchrun`` every process trains its own rank in
+    place and returns its own state.
     """
     device = resolve_device(device)
-    _check_single_device(train_cfg.mesh)
+    mesh = resolve_mesh(train_cfg.mesh, batch_size=train_cfg.batch_size, device=device)
+    if mesh is not None and train_cfg.batch_size % mesh.data != 0:
+        raise ValueError(
+            f"batch_size {train_cfg.batch_size} not divisible by the mesh data axis "
+            f"({mesh.data}); every step's batch must shard evenly (set train.batch_size or "
+            f"train.mesh accordingly)")
+    if mesh is not None and current_mesh() != mesh:
+        kwargs = dict(config=config, augment_fn=augment_fn, ckpt_name=ckpt_name,
+                      callback=callback, log=log, install_params=install_params,
+                      opt_mask=opt_mask, device=device)
+        if torchrun_world() > 1:  # this process is a rank already: it trains in place
+            return launch(functools.partial(train_loop, **kwargs), mesh, model, train_data,
+                          loss_fn, train_cfg)
+        _picklable(loss_fn=loss_fn, augment_fn=augment_fn, callback=callback)
+        trainable = None if opt_mask is None else opt_mask(model)
+        if trainable is not None:
+            kwargs["opt_mask"] = functools.partial(_given, trainable)
+        full, losses = launch(_train_rank, mesh, model, to_host(train_data), loss_fn, train_cfg,
+                              kwargs)
+        state = TrainState.create(model, optimizer_from_config(train_cfg), device=device,
+                                  trainable=trainable)
+        state.load_state_dict(full)
+        return state, losses
+    lead = mesh is None or rank() == 0  # writes the checkpoint and logs
+    log = log and lead
+    if mesh is not None:
+        device = rank_device(mesh)
+        train_data = to_device(train_data, device)
     seed = train_cfg.seed
     init_params(model, torch.Generator().manual_seed(fold_in(seed, 0)))
     if install_params:
@@ -194,9 +268,6 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     opt = optimizer_from_config(train_cfg)
     state = TrainState.create(model, opt, seed=fold_in(seed, 1), device=device,
                               trainable=None if opt_mask is None else opt_mask(model))
-    # train.scan_epoch picks the JAX package's program; here both are this loop
-    epoch_fn = make_scan_epoch(model, opt, loss_fn, train_cfg.accum_steps,
-                               train_cfg.accum_reduction, device)
     losses = []
     start_epoch = 0
     ckpt_path = os.path.join(train_cfg.ckpt_dir, ckpt_name)
@@ -226,6 +297,14 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
                 print(f"resumed from {ckpt_path} at epoch {start_epoch}")
         elif log:
             print(f"resume requested but no checkpoint at {ckpt_path}; starting fresh")
+    if mesh is not None:  # after any restore, as in the JAX package
+        if mesh.model > 1:
+            shard_state_tp(state, mesh)  # checks every attention's head count
+        if log:
+            print(f"training on {mesh.size} ranks (mesh {mesh.shape}, {mesh.backend})")
+    # train.scan_epoch picks the JAX package's program; here both are this loop
+    epoch_fn = make_scan_epoch(model, opt, loss_fn, train_cfg.accum_steps,
+                               train_cfg.accum_reduction, device, mesh=mesh)
     if train_cfg.parity and augment_fn is not None:
         train_data = augment_fn(device_generator(fold_in(seed, 3), device), train_data)
         augment_fn = None
@@ -241,8 +320,11 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
         losses.append(mean_loss)
         if log:
             print(f"epoch {epoch + 1}/{train_cfg.epochs}: loss {losses[-1]:.6f}")
-        if (epoch + 1) % train_cfg.save_every == 0 or epoch + 1 == train_cfg.epochs:
-            save_checkpoint(ckpt_path, state, cfg_dict)
+        saving = (epoch + 1) % train_cfg.save_every == 0 or epoch + 1 == train_cfg.epochs
+        # every rank of a tensor-parallel group gathers; rank 0 writes
+        whole = gather_state_tp(state, mesh) if saving else None
+        if saving and lead:
+            save_checkpoint(ckpt_path, whole, cfg_dict)
             np.save(os.path.join(ckpt_path, "losses.npy"), np.asarray(losses, np.float64))
             # atomic: a kill mid-write must not leave truncated JSON
             progress_tmp = os.path.join(ckpt_path, "progress.json.tmp")
@@ -258,7 +340,7 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
                     print("matplotlib is not installed: no loss-curve PNG is written "
                           "(losses.npy holds every epoch's loss)")
                     plot_warned = True
-        if callback is not None:
+        if callback is not None and lead:
             callback(epoch, state, losses[-1])
     return state, losses
 

@@ -27,13 +27,16 @@ import torch
 
 from ..data import multimodal_tuple
 from ..evaluation import evaluate_mmvae, mmvae_reconstruction_suite
-from ..training import resolve_device
+from ..parallel.mesh import rank
 from ..utils.checkpoint import restore_config, restore_params
 from ..utils.config import PhotoSpectraMMVAEConfig, SpectraVAEConfig
 from ..utils.weights import init_params
-from .common import _check_single_device, parse_cli, resolve_dataset
+from .common import parse_cli, resolve_dataset, run_evaluation
 from .train_photospectra import build_model as build_mmvae
 from .train_spectra import build_model as build_specvae
+
+
+CHUNK = 64  # events per chunk of the suite
 
 
 def _restore(ckpt, model):
@@ -54,8 +57,14 @@ def _config_for(ckpt, default_cls):
 
 
 def main(argv=None, device=None):
-    """Evaluate on ``device`` (default: the card); returns the metrics."""
+    """Evaluate on ``device`` (default: the card), or on the ranks of
+    ``mesh=`` (chunks of 64 events split over its data axis; rank 0 writes
+    ``out``); returns the metrics."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    return run_evaluation(_run, argv, device, _parse(argv)["mesh"], CHUNK)
+
+
+def _parse(argv):
     mm_ckpt = spec_ckpt = None
     K, out_dir, mesh_spec = 100, "./res", "auto"
     predictive = False
@@ -79,9 +88,14 @@ def main(argv=None, device=None):
         else:
             rest.append(a)
     data_path, rest = parse_cli(rest)
-    _check_single_device(mesh_spec)
-    device = resolve_device(device)
+    return dict(mm_ckpt=mm_ckpt, spec_ckpt=spec_ckpt, K=K, out=out_dir, mesh=mesh_spec,
+                predictive=predictive, data=data_path)
 
+
+def _run(argv, device, mesh):
+    opts = _parse(argv)
+    mm_ckpt, spec_ckpt, K, out_dir = opts["mm_ckpt"], opts["spec_ckpt"], opts["K"], opts["out"]
+    predictive, data_path = opts["predictive"], opts["data"]
     data = resolve_dataset(data_path, "goldstein")
     te_idx = np.asarray(data["testing_idx"])
     test_batch = multimodal_tuple(data, idx=te_idx, device=device)
@@ -100,11 +114,13 @@ def main(argv=None, device=None):
             ("flux_mean", "flux_std", "photoflux_mean", "photoflux_std")}
 
     recs = mmvae_reconstruction_suite(
-        mm_model, test_batch, K=K, seed=0, spec_only=spec_only, norm=norm, mesh=mesh_spec,
+        mm_model, test_batch, K=K, seed=0, spec_only=spec_only, norm=norm, mesh=mesh,
         predictive=predictive, device=device)
     # reuse the (denormalized) reconstructions: one inference pass in all,
     # and the metrics in physical units
     metrics = evaluate_mmvae(mm_model, test_batch, phase_phys, gt_spectra, recs=recs)
+    if rank() != 0:
+        return metrics
 
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "reconstructions.npz"), **recs)

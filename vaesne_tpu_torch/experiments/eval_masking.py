@@ -24,16 +24,25 @@ import numpy as np
 
 from ..data import multimodal_tuple
 from ..evaluation import masking_sweep
-from ..training import resolve_device
+from ..parallel.mesh import rank
 from ..utils.config import PhotoSpectraMMVAEConfig, parse_overrides
-from .common import _check_single_device, parse_cli, resolve_dataset
+from .common import parse_cli, resolve_dataset, run_evaluation
 from .eval_goldstein import _config_for, _restore
 from .train_photospectra import build_model as build_mmvae
 
 
+CHUNK = 32  # events per chunk of the sweep
+
+
 def main(argv=None, device=None):
-    """Sweep on ``device`` (default: the card); returns {portion: MSE}."""
+    """Sweep on ``device`` (default: the card), or on the ranks of
+    ``mesh=`` (chunks of 32 events split over its data axis; rank 0 writes
+    ``out``); returns {portion: MSE}."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    return run_evaluation(_run, argv, device, _parse(argv)[3], CHUNK)
+
+
+def _parse(argv):
     mm_ckpt, K, out_dir, mesh_spec = None, 100, "./res", "auto"
     rest = []
     for a in argv:
@@ -48,9 +57,11 @@ def main(argv=None, device=None):
         else:
             rest.append(a)
     data_path, rest = parse_cli(rest)
-    _check_single_device(mesh_spec)
-    device = resolve_device(device)
+    return mm_ckpt, K, out_dir, mesh_spec, data_path, rest
 
+
+def _run(argv, device, mesh):
+    mm_ckpt, K, out_dir, _, data_path, rest = _parse(argv)
     data = resolve_dataset(data_path, "goldstein")
     te_idx = np.asarray(data["testing_idx"])
     test_batch = multimodal_tuple(data, idx=te_idx, device=device)
@@ -61,17 +72,19 @@ def main(argv=None, device=None):
     mm_cfg = parse_overrides(_config_for(mm_ckpt, PhotoSpectraMMVAEConfig), rest)
     mm_model = _restore(mm_ckpt, build_mmvae(mm_cfg))
 
-    sweep = masking_sweep(mm_model, test_batch, K=K, mesh=mesh_spec, device=device)
+    sweep = masking_sweep(mm_model, test_batch, K=K, chunk_size=CHUNK, mesh=mesh, device=device)
 
     flux_mean, flux_std = float(data["flux_mean"]), float(data["flux_std"])
     gt = np.asarray(data["flux"])[te_idx] * flux_std + flux_mean
     obs = ~test_batch[1][3].cpu().numpy()  # the mask is True where missing
-    os.makedirs(out_dir, exist_ok=True)
     mses = {}
     for portion, recs in sweep.items():
         rec = recs * flux_std + flux_mean
-        mse = float((((rec.mean(0) - gt) ** 2) * obs).sum() / obs.sum())
-        mses[portion] = mse
+        mses[portion] = float((((rec.mean(0) - gt) ** 2) * obs).sum() / obs.sum())
+    if rank() != 0:
+        return mses
+    os.makedirs(out_dir, exist_ok=True)
+    for portion, mse in mses.items():
         print(f"masking {int(portion * 100):2d}%: LC->spec MSE {mse:.6f}")
     np.savez(os.path.join(out_dir, "masking_sweep.npz"),
              portions=np.array(sorted(mses)),

@@ -30,11 +30,11 @@ import torch
 
 from ..data import goldstein_labels, photometry_tuple, spectra_tuple
 from ..evaluation.harness import batched_apply
-from ..training import resolve_device
+from ..parallel.mesh import rank
 from ..utils.checkpoint import restore_params
 from ..utils.config import RegressionConfig, parse_overrides
 from ..utils.weights import init_params
-from .common import _check_single_device, parse_cli, resolve_dataset
+from .common import parse_cli, resolve_dataset, run_evaluation
 from .train_regression import (
     NORMALIZING_FILE,
     build_head,
@@ -46,17 +46,21 @@ CHUNK = 256  # events per call of the head
 
 
 def main(argv=None, device=None):
-    """Evaluate on ``device`` (default: the card); returns absdiff [N, P]."""
+    """Evaluate on ``device`` (default: the card), or on the ranks of
+    ``mesh=`` (chunks of 256 events split over its data axis; rank 0 writes
+    ``out``); returns absdiff [N, P]."""
     argv = list(sys.argv[1:] if argv is None else argv)
+    opts, _ = parse_regression_cli(argv, "modality", "backbone", "head_ckpt", "out", "mesh")
+    return run_evaluation(_run, argv, device, opts.get("mesh", "auto"), CHUNK)
+
+
+def _run(argv, device, mesh):
     opts, rest = parse_regression_cli(argv, "modality", "backbone", "head_ckpt", "out", "mesh")
     modality = opts.get("modality", "photometry")
     backbone = opts.get("backbone", "mmvae")
     head_ckpt, out_dir = opts.get("head_ckpt"), opts.get("out", "./res")
-    mesh_spec = opts.get("mesh", "auto")
     data_path, rest = parse_cli(rest)
     cfg = parse_overrides(RegressionConfig(), rest)
-    _check_single_device(mesh_spec)
-    device = resolve_device(device)
 
     data = resolve_dataset(data_path, "goldstein")
     tr_idx = np.asarray(data["training_idx"])
@@ -83,8 +87,10 @@ def main(argv=None, device=None):
     head = head.to(device).eval()
 
     with torch.inference_mode():
-        pred = batched_apply(head, x_test, chunk_size=CHUNK, out_axes=0, mesh=mesh_spec)
+        pred = batched_apply(head, x_test, chunk_size=CHUNK, out_axes=0, mesh=mesh)
     absdiff = np.abs(pred.cpu().numpy() - te_labels)  # already in sigma units
+    if rank() != 0:
+        return absdiff
 
     os.makedirs(out_dir, exist_ok=True)
     out_name = f"avg_absdiff_{modality}2goldstein_param_{backbone}.npz"

@@ -57,11 +57,9 @@ def main(argv=None, device=None, callback=None):
     train_data, _ = split_tuples(data, multimodal_tuple, device)
     model = build_model(cfg)
 
-    def loss_fn(m, batch, seed):
-        return objectives.neg_info_nce(m, batch, temperature=cfg.temperature, seed=seed)
-
     state, losses = train_loop(
-        model, train_data, loss_fn, cfg.train, config=cfg,
+        model, train_data,
+        objectives.as_loss(objectives.neg_info_nce, temperature=cfg.temperature), cfg.train, config=cfg,
         augment_fn=augment_multimodal, callback=callback, device=device,
         ckpt_name=(f"goldstein_contrastive_{cfg.model.latent_len}-{cfg.model.latent_dim}"
                    f"_proj{cfg.proj_dim}"),

@@ -94,6 +94,11 @@ def parse_image_cli(argv):
     return dataset, data_path, parse_overrides(cfg, rest)
 
 
+def augment(generator, batch):
+    """Fresh flips and warps every epoch; event_loc stays as it is."""
+    return augment_images(generator, batch[0]), batch[1]
+
+
 def main(argv=None, device=None, callback=None):
     """Train on ``device`` (default: the card). Returns (state, losses)."""
     dataset, data_path, cfg = parse_image_cli(list(sys.argv[1:] if argv is None else argv))
@@ -107,17 +112,10 @@ def main(argv=None, device=None, callback=None):
     train_data = image_tuple(images, device)
     model = build_model(cfg)
 
-    def loss_fn(m, batch, seed):
-        return objectives.elbo(m, batch, cfg.train.K, seed=seed)
-
-    def augment(generator, batch):
-        # fresh flips and warps every epoch; event_loc stays as it is
-        return augment_images(generator, batch[0]), batch[1]
-
     m = cfg.model
     state, losses = train_loop(
-        model, train_data, loss_fn, cfg.train, config=cfg, augment_fn=augment, device=device,
-        callback=callback,
+        model, train_data, objectives.as_loss(objectives.elbo, K=cfg.train.K), cfg.train,
+        config=cfg, augment_fn=augment, device=device, callback=callback,
         ckpt_name=f"{dataset}_image_{m.latent_len}-{m.latent_dim}_patch{cfg.patch_size}")
     print(f"final loss: {losses[-1]:.6f}")
     return state, losses

@@ -37,12 +37,9 @@ def main(argv=None, device=None):
     train_data, _ = split_tuples(data, photometry_tuple, device)
     model = build_model(cfg)
 
-    def loss_fn(m, batch, seed):
-        return objectives.elbo(m, batch, cfg.train.K, seed=seed)
-
     state, losses = train_loop(
-        model, train_data, loss_fn, cfg.train, config=cfg, augment_fn=augment_photometry,
-        device=device,
+        model, train_data, objectives.as_loss(objectives.elbo, K=cfg.train.K), cfg.train,
+        config=cfg, augment_fn=augment_photometry, device=device,
         ckpt_name=f"goldstein_photometry_{cfg.model.latent_len}-{cfg.model.latent_dim}",
     )
     print(f"final loss: {losses[-1]:.6f}")

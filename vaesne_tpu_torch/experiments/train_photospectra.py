@@ -49,11 +49,8 @@ def main(argv=None, device=None, callback=None):
     train_data, _ = split_tuples(data, multimodal_tuple, device)
     model = build_model(cfg)
 
-    def loss_fn(m, batch, seed):
-        return objectives.m_iwae(m, batch, cfg.train.K, seed=seed)
-
     state, losses = train_loop(
-        model, train_data, loss_fn, cfg.train, config=cfg,
+        model, train_data, objectives.as_loss(objectives.m_iwae, K=cfg.train.K), cfg.train, config=cfg,
         augment_fn=augment_multimodal, callback=callback, device=device,
         ckpt_name=(f"goldstein_photospec_{cfg.model.latent_len}-{cfg.model.latent_dim}"
                    f"_K{cfg.train.K}_beta{cfg.train.beta}"),

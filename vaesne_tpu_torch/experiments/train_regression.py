@@ -130,6 +130,12 @@ def label_normalization(labels: np.ndarray):
     return labels.mean(0), labels.std(0) + 1e-8
 
 
+def paired_mse(model, batch, *, seed=None):
+    """``objectives.mse`` of a batch ``(x, y)``."""
+    x, y = batch
+    return objectives.mse(model, x, y, seed=seed)
+
+
 def main(argv=None, device=None, callback=None):
     """Train on ``device`` (default: the card); ``callback(epoch, state,
     loss)`` runs after each epoch. Returns (state, losses)."""
@@ -156,16 +162,13 @@ def main(argv=None, device=None, callback=None):
                               cfg)
     train_data = (x_train, torch.from_numpy(labels).to(device))
 
-    def loss_fn(m, batch, seed):
-        x, y = batch
-        return objectives.mse(m, x, y, seed=seed)
-
     # The backbone's weights are installed into the head's parameters and
     # masked out of the optimizer: the checkpoint then holds the whole
     # backbone (the evaluation restores everything from the head's
     # checkpoint alone), and AdamW's weight decay cannot move it.
     state, losses = train_loop(
-        head, train_data, loss_fn, cfg.train, config=cfg, install_params=frozen,
+        head, train_data, objectives.as_loss(paired_mse), cfg.train, config=cfg,
+        install_params=frozen,
         opt_mask=(lambda m: frozen_param_mask(m, frozen)) if frozen else None,
         callback=callback, device=device, ckpt_name=f"goldstein_{modality}2param_{backbone}",
     )

@@ -9,6 +9,7 @@ Usage: python -m vaesne_tpu_torch.experiments.train_ztf_spectra [data=/path.npz]
 
 from __future__ import annotations
 
+import functools
 import sys
 
 from .. import objectives
@@ -36,14 +37,10 @@ def main(argv=None, device=None):
     train_data = repeat_dataset(train_data, cfg.repeat_factor)
     model = build_model(cfg)
 
-    def loss_fn(m, batch, seed):
-        return objectives.elbo(m, batch, cfg.train.K, seed=seed)
-
-    def augment(generator, batch):
-        return augment_spectra(generator, batch, extra_mask_prob=cfg.extra_mask_prob)
-
     state, losses = train_loop(
-        model, train_data, loss_fn, cfg.train, config=cfg, augment_fn=augment,
+        model, train_data, objectives.as_loss(objectives.elbo, K=cfg.train.K), cfg.train,
+        config=cfg,
+        augment_fn=functools.partial(augment_spectra, extra_mask_prob=cfg.extra_mask_prob),
         device=device,
         ckpt_name=f"ztf_spectra_{cfg.model.latent_len}-{cfg.model.latent_dim}",
     )

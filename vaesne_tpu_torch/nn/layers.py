@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import attend, attention_weights, fused_attention, routes_to_kernel
+from ..ops import attend, attention_weights, fused_attention, partition, routes_to_kernel
 from ..utils.rng import device_generator, maybe_fold_in
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
@@ -183,13 +183,19 @@ def _need_seed(seed: Optional[int], what: str) -> int:
     return seed
 
 
-def dropout(x: torch.Tensor, rate: float, seed: Optional[int]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+            head_axis: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout of ``x`` with a mask drawn from a generator seeded
-    with ``seed`` on x's device (rate 0: ``x`` itself)."""
+    with ``seed`` on x's device (rate 0: ``x`` itself). On a shard of a
+    mesh the mask is this rank's part of the whole step's
+    (``partition.global_draw``; ``head_axis``: where x holds this rank's
+    heads)."""
     if rate == 0.0:
         return x
     g = device_generator(_need_seed(seed, "dropout"), x.device)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    keep = partition.global_draw(
+        lambda shape: torch.rand(shape, generator=g, device=x.device), tuple(x.shape),
+        head_axis) >= rate
     return x * keep.to(x.dtype) * (1.0 / (1.0 - rate))
 
 
@@ -204,7 +210,16 @@ class MultiHeadAttention(nn.Module):
     mask is the kernels' hash (``ops.attention.dropout_keep``). The rest take
     the plain einsum path and drop the softmax weights with ``dropout``, as
     the JAX layer's plain path draws a bernoulli mask: a few elementwise
-    passes where the hash would take ~20 int64 passes over the weights."""
+    passes where the hash would take ~20 int64 passes over the weights.
+
+    On an event shard (``ops.partition``) the dispatch rule is asked with
+    the global rows and heads, and the kernel's seed is the shard's
+    (``shard_seed``). ``tp_size`` > 1 (set by ``parallel.shard_params_tp``)
+    means the projections hold this rank's heads: q/k/v their output
+    columns, ``out_proj`` its input columns, whose partial products are
+    summed over the model group before the bias."""
+
+    tp_size = 1
 
     def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
@@ -220,21 +235,34 @@ class MultiHeadAttention(nn.Module):
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 seed: Optional[int] = None) -> torch.Tensor:
+        split = self.tp_size > 1
+        if split:  # one all-reduce backward per distinct input
+            copies = {}
+            for t in (query, key, value):
+                if id(t) not in copies:
+                    copies[id(t)] = partition.copy_to_model(t)
+            query, key, value = (copies[id(t)] for t in (query, key, value))
         q = self.q_proj(query)
         k = self.k_proj(key)
         v = self.v_proj(value)
+        heads = self.num_heads // self.tp_size
         rate = self.dropout if self.training else 0.0
         if rate > 0.0:
             _need_seed(seed, "attention dropout")
         lq, lk = q.shape[-2], k.shape[-2]
-        if q.dim() == 3 and routes_to_kernel(q.shape[0], self.num_heads, lq, lk):
+        if q.dim() == 3 and routes_to_kernel(partition.global_rows(q.shape[0]),
+                                             self.num_heads, lq, lk):
             if key_padding_mask is not None:
                 key_padding_mask = key_padding_mask.contiguous()
             out = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  key_padding_mask, self.num_heads, rate, seed)
+                                  key_padding_mask, heads, rate,
+                                  partition.kernel_seed(seed, q.shape[0], heads, split))
         else:
-            weights = attention_weights(q, k, key_padding_mask, self.num_heads)
-            out = attend(dropout(weights, rate, seed), v, self.num_heads)
+            weights = attention_weights(q, k, key_padding_mask, heads)
+            out = attend(dropout(weights, rate, seed, -3 if split else None), v, heads)
+        if split:
+            return partition.reduce_from_model(
+                F.linear(out, self.out_proj.weight)) + self.out_proj.bias
         return self.out_proj(out)
 
 
@@ -249,7 +277,11 @@ class TransformerBlock(nn.Module):
     Every tower of the model calls its blocks with a context, so the
     cross-attention parameters always exist. In train mode the seven
     dropout sites (three attentions, four residual branches) draw from
-    ``fold_in(seed, site)``."""
+    ``fold_in(seed, site)``. ``tp_size`` > 1 (``parallel.shard_params_tp``)
+    means ``ffn_0`` holds this rank's hidden columns and ``ffn_2`` the
+    matching rows."""
+
+    tp_size = 1
 
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int,
                  dropout: float = 0.1, context_self_attn: bool = False):
@@ -286,7 +318,11 @@ class TransformerBlock(nn.Module):
             cross = self.cross_attn(x, context, context, key_padding_mask=context_mask,
                                     seed=site(4))
             x = self.layernorm2(x + dropout(cross, rate, site(5)))
-        h = self.ffn_2(F.gelu(self.ffn_0(x), approximate="none"))
+        if self.tp_size > 1:  # ffn_0's columns and ffn_2's rows of this rank
+            h = F.gelu(self.ffn_0(partition.copy_to_model(x)), approximate="none")
+            h = partition.reduce_from_model(F.linear(h, self.ffn_2.weight)) + self.ffn_2.bias
+        else:
+            h = self.ffn_2(F.gelu(self.ffn_0(x), approximate="none"))
         return self.layernorm3(x + dropout(h, rate, site(6)))
 
 

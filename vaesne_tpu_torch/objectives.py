@@ -17,13 +17,26 @@ eval mode.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 from .distributions import kl_divergence, log_mean_exp
+from .ops import partition
 from .utils.rng import device_generator, fold_in
+
+
+def _seeded(objective, kwargs, model, batch, seed):
+    return objective(model, batch, seed=seed, **kwargs)
+
+
+def as_loss(objective: Callable, **kwargs) -> Callable:
+    """``objective(model, batch, seed=seed, **kwargs)`` as a train loop's
+    ``loss_fn(model, batch, seed)``: a ``functools.partial`` of module-level
+    functions, so it pickles for spawned ranks (``parallel.launch``)."""
+    return functools.partial(_seeded, objective, kwargs)
 
 
 def grid_loglik(px_z, data: torch.Tensor) -> torch.Tensor:
@@ -122,8 +135,12 @@ def neg_info_nce(model, x, temperature: float = 0.07, *,
     """Negated symmetric InfoNCE over a two-tower model's projections
     (z1, z2) = model(x): with each row normalised (norm clipped at 1e-12)
     and logits = z1·z2ᵀ / temperature, −(CE(logits, I) + CE(logitsᵀ, I))/2,
-    each CE a mean over the batch. A quantity to maximise."""
+    each CE a mean over the batch. A quantity to maximise. On one of
+    several event shards the logits are the global batch's: both
+    projections are gathered from every rank (``partition.gather_events``),
+    as the JAX package's one program sees the whole batch."""
     z1, z2 = model(x, seed=_dropout_seed(model, seed))
+    z1, z2 = partition.gather_events(z1), partition.gather_events(z2)
     z1 = z1 / torch.linalg.vector_norm(z1, dim=-1, keepdim=True).clamp_min(1e-12)
     z2 = z2 / torch.linalg.vector_norm(z2, dim=-1, keepdim=True).clamp_min(1e-12)
     logits = z1 @ z2.T / temperature

@@ -22,12 +22,15 @@ call.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .ops import partition
 
 DEFAULT_BUCKETS = (8, 32, 128, 512)
 
@@ -81,16 +84,35 @@ class InferenceServer:
     The model is moved to ``device`` (default ``"cuda"``; raises where no
     CUDA device is present) and put in eval mode. ``precision`` is None or
     ``"fp32"`` (float32 throughout) or ``"bf16"`` (bfloat16 autocast over
-    the float32 weights, scoped to each call)."""
+    the float32 weights, scoped to each call).
+
+    ``mesh`` (a ``parallel`` mesh this process is a rank of, on its device
+    unless ``device`` says otherwise): every rank builds the server and
+    takes every request. The parameters are broadcast from rank 0, each
+    rank runs its event shard of the padded bucket (its draws its part of
+    the whole bucket's), and the result is assembled on every rank. Every
+    bucket must divide the data axis."""
 
     def __init__(self, model: torch.nn.Module, *,
                  buckets: Sequence[int] = DEFAULT_BUCKETS, seed: int = 0,
-                 precision: Optional[str] = None, device=None):
+                 precision: Optional[str] = None, device=None, mesh=None):
         if not buckets or sorted(buckets) != list(buckets):
             raise ValueError(f"buckets must be ascending, got {buckets}")
         if precision not in (None, "fp32", "bf16"):
             raise ValueError(
                 f"precision must be None, 'fp32' or 'bf16', got {precision!r}")
+        self._mesh, self._shard = mesh, None
+        if mesh is not None:
+            from .parallel.mesh import rank_device, shard_of
+
+            bad = [b for b in buckets if b % mesh.data]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} not divisible by the mesh data axis ({mesh.data}); every "
+                    f"padded request must shard evenly over the event axis")
+            self._shard = shard_of(mesh)
+            if device is None:
+                device = rank_device(mesh)
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -99,6 +121,12 @@ class InferenceServer:
         self._device = device
         self._precision = precision
         self._model = model.to(device).eval()
+        if mesh is not None:
+            import torch.distributed as dist
+
+            with torch.no_grad():
+                for t in (*self._model.parameters(), *self._model.buffers()):
+                    dist.broadcast(t, src=0)
         self._buckets = tuple(int(b) for b in buckets)
         self._programs: set = set()
         self._seeds = torch.Generator().manual_seed(seed)
@@ -163,8 +191,9 @@ class InferenceServer:
         return torch.Generator(self._device).manual_seed(seed)
 
     def _place(self, batch, bucket: int):
-        """Pad to the bucket on the host and move to the device: floats as
-        float32, integers as int64 (embedding indices), masks as bool."""
+        """Pad to the bucket on the host, keep this rank's events under a
+        mesh, and move to the device: floats as float32, integers as int64
+        (embedding indices), masks as bool."""
 
         def put(a):
             t = torch.from_numpy(np.ascontiguousarray(a))
@@ -174,7 +203,26 @@ class InferenceServer:
                 t = t.to(torch.int64)
             return t.to(self._device)
 
-        return tuple(put(a) for a in _pad_to(batch, bucket))
+        padded = _pad_to(batch, bucket)
+        if self._mesh is not None:
+            from .parallel.mesh import shard_batch
+
+            padded = shard_batch(padded, self._mesh)
+        return tuple(put(a) for a in padded)
+
+    def _run(self):
+        """The model's scope for one call: inference, the precision and,
+        under a mesh, this rank's shard."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.inference_mode())
+        stack.enter_context(self._autocast())
+        stack.enter_context(partition.sharded(self._shard))
+        return stack
+
+    def _whole(self, t: torch.Tensor, axis: int) -> torch.Tensor:
+        """Every rank's events of ``t`` along ``axis`` (``t`` itself on one
+        process)."""
+        return partition.gather_events(t, axis, self._shard)
 
     def _autocast(self):
         return torch.autocast(self._device.type, dtype=torch.bfloat16,
@@ -203,10 +251,11 @@ class InferenceServer:
         g = self._next_generator(generator)
         bucket = self._bucket_for(n)
         self._program("crossmodal", (tuple(direction), K, bucket, predictive))
-        with torch.inference_mode(), self._autocast():
+        with self._run():
             out = self._model.crossmodgen(
                 self._place(x_in, bucket), self._place(x_out, bucket),
                 direction=direction, K=K, predictive=predictive, generator=g)
+            out = self._whole(out, 1)
         return out[:, :n]
 
     def crossmodal_ci(self, x_in, x_out, direction: Tuple[int, int] = (0, 1),
@@ -223,14 +272,15 @@ class InferenceServer:
         g = self._next_generator(generator)
         bucket = self._bucket_for(n)
         self._program("crossmodal_ci", (tuple(direction), K, alpha, bucket, predictive))
-        with torch.inference_mode(), self._autocast():
+        with self._run():
             draws = self._model.crossmodgen(
                 self._place(x_in, bucket), self._place(x_out, bucket),
                 direction=direction, K=K, predictive=predictive, generator=g)
             d32 = draws.float()
             lo, hi = _quantile(d32, (alpha / 2, 1 - alpha / 2), dim=0)
             mean = d32.mean(0)
-        return tuple(t[:n].to(draws.dtype) for t in (mean, lo, hi))
+            stats = [self._whole(t, 0) for t in (mean, lo, hi)]
+        return tuple(t[:n].to(draws.dtype) for t in stats)
 
     def embed(self, x, modality: int = 0) -> torch.Tensor:
         """Posterior-mean embeddings ``[B, latent_len, latent_dim]`` of one
@@ -239,8 +289,8 @@ class InferenceServer:
         bucket = self._bucket_for(n)
         self._program("embed", (modality, bucket))
         vae = self._model.vaes[modality] if hasattr(self._model, "vaes") else self._model
-        with torch.inference_mode(), self._autocast():
-            return vae.encode(self._place(x, bucket))[:n]
+        with self._run():
+            return self._whole(vae.encode(self._place(x, bucket)), 0)[:n]
 
     def reconstruct(self, x, K: int = 1, generator: Optional[torch.Generator] = None):
         """M×M matrix of posterior-mean reconstructions, numpy [K, B, ...]."""
@@ -249,9 +299,10 @@ class InferenceServer:
         g = self._next_generator(generator)
         bucket = self._bucket_for(n)
         self._program("reconstruct", (K, bucket))
-        with torch.inference_mode(), self._autocast():
+        with self._run():
             out = self._model.reconstruct(tuple(self._place(m, bucket) for m in x),
                                           K, generator=g)
+            out = [[self._whole(col, 1) for col in row] for row in out]
         return [[col[:, :n].float().cpu().numpy() for col in row] for row in out]
 
     def prewarm(self, example, tasks: Optional[Sequence[str]] = None,

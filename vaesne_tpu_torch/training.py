@@ -19,6 +19,7 @@ present. The step runs eagerly: a CUDA graph of the step is later work.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from .nn.layers import cudnn_fp32_deterministic
+from .ops import partition
 from .utils.rng import draw_seed, fold_in
 
 LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
@@ -66,11 +68,19 @@ def adamw(lr: float, weight_decay: float = 1e-2, b1: float = 0.9, b2: float = 0.
     return AdamW(lr, weight_decay, b1, b2, eps, grad_clip)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def _sum_of_squares(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.stack(torch._foreach_norm(list(grads))).square().sum()
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Scale ``grads`` in place by max_norm/‖g‖ when the global norm ‖g‖ is
     at least ``max_norm``, exactly as ``optax.clip_by_global_norm`` does
-    (``clip_grad_norm_`` adds 1e-6 to the norm). Returns ‖g‖; no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    (``clip_grad_norm_`` adds 1e-6 to the norm). ``norm`` is ‖g‖ where the
+    caller has it (over a tensor-parallel model's whole gradient). Returns
+    ‖g‖; no host sync."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(list(grads), factor)
     return norm
@@ -161,13 +171,15 @@ def to_device(batch, device: torch.device):
 
 def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tensor],
                          model: nn.Module, batch, seed: int, accum_steps: int,
-                         reduction: str = "mean") -> torch.Tensor:
+                         reduction: str = "mean", no_sync=None) -> torch.Tensor:
     """Microbatched value-and-grad: the batch axis is cut into
     ``accum_steps`` equal microbatches, each backward adds into the
     parameters' ``.grad``, so peak activation memory is one microbatch's.
     ``reduction`` must match the objective's batch reduction: ``"mean"``
     averages the microbatch losses and gradients, ``"sum"`` (``m_iwae``)
-    sums them. Microbatch i takes ``fold_in(seed, i)``. Returns the loss."""
+    sums them. Microbatch i takes ``fold_in(seed, i)``. ``no_sync`` (DDP's)
+    holds the gradient all-reduce back until the last microbatch. Returns
+    the loss."""
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got {reduction!r}")
     n = _leaves(batch)[0].shape[0]
@@ -177,8 +189,10 @@ def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tens
     total = None
     for i in range(accum_steps):
         micro = _tree_map(lambda a: a[i * size:(i + 1) * size], batch)
-        loss = neg_loss_fn(model, micro, fold_in(seed, i))
-        loss.backward()
+        hold = no_sync is not None and i < accum_steps - 1
+        with no_sync() if hold else contextlib.nullcontext():
+            loss = neg_loss_fn(model, micro, fold_in(seed, i))
+            loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     if reduction == "mean":
         inv = 1.0 / accum_steps
@@ -187,22 +201,97 @@ def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tens
     return total
 
 
+class _Objective(nn.Module):
+    """The step's loss as a module, so that DDP wraps the whole objective
+    and ``loss_fn`` still gets the model itself."""
+
+    def __init__(self, model: nn.Module, neg_loss):
+        super().__init__()
+        self.model = model
+        self.neg_loss = neg_loss
+
+    def forward(self, batch, seed):
+        return self.neg_loss(self.model, batch, seed)
+
+
+def _allreduce_sum(group, bucket):
+    """DDP comm hook: sum the bucket over the group (the default averages)."""
+    import torch.distributed as dist
+
+    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+def _ddp(model: nn.Module, neg_loss, shard, reduction: str):
+    """DDP over the data group around the objective: the gradients are
+    averaged (a batch-mean objective) or summed (a batch-sum one) over the
+    ranks in the backward. Frozen parameters stay out of its buckets; every
+    trainable parameter must take a gradient in every step."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    ddp = DistributedDataParallel(_Objective(model, neg_loss), process_group=shard.data_group)
+    if reduction == "sum":
+        ddp.register_comm_hook(shard.data_group, _allreduce_sum)
+    return ddp
+
+
+def _global_norm(state: "TrainState", grads, shard) -> Optional[torch.Tensor]:
+    """‖g‖ of a tensor-parallel model's whole gradient: the split
+    parameters' squares summed over the model group, the replicated ones
+    counted once. None where nothing is split."""
+    specs = getattr(state.model, "tp_specs", None)
+    if not specs or shard is None:
+        return None
+    import torch.distributed as dist
+
+    split = {id(p) for n, p in state.model.named_parameters() if n in specs}
+    parts = [[g for p, g in grads if (id(p) in split) == s] for s in (True, False)]
+    sq = [_sum_of_squares(g) if g else torch.zeros((), device=grads[0][1].device)
+          for g in parts]
+    dist.all_reduce(sq[0], group=shard.model_group)
+    return torch.sqrt(sq[0] + sq[1])
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                     accum_steps: int = 1, accum_reduction: str = "mean", device=None,
-                    precision: str = "fp32"):
+                    precision: str = "fp32", mesh=None):
     """The train step ``step(state, batch) -> (state, loss)``: gradients of
     ``-loss_fn`` (accumulated over ``accum_steps`` microbatches when > 1),
     the global-norm clip, then the AdamW update. ``batch`` is moved to
     ``device`` (default: the card). ``precision="bf16"`` runs the forward
     under bf16 autocast over the fp32 weights (the JAX package's
-    ``VAESNE_BF16``). The loss stays on the device."""
+    ``VAESNE_BF16``). The loss stays on the device.
+
+    ``mesh`` (a ``parallel`` mesh this process is a rank of): the step
+    takes the global batch and runs this rank's slice of it under DDP over
+    the data group; ``accum_reduction`` names the objective's batch
+    reduction, so the gradients and the returned loss are the global
+    batch's (summed for ``"sum"``, averaged for ``"mean"``). The clip's
+    norm is taken after the gradient all-reduce, over the whole gradient
+    of a tensor-parallel model."""
     device = resolve_device(device)
     if precision not in ("fp32", "bf16"):
         raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+    shard = None
+    if mesh is not None:
+        from .parallel.mesh import shard_batch, shard_of
+
+        shard = shard_of(mesh)
+    wrapped = []  # the DDP module, built at the first step on every rank
 
     def neg_loss(m, b, seed):
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=precision == "bf16"):
             return -loss_fn(m, b, seed)
+
+    def objective():
+        """(loss of a global (micro)batch, DDP's no_sync): under a mesh the
+        rank runs its slice of each microbatch under DDP."""
+        if shard is None:
+            return neg_loss, None
+        if not wrapped:
+            wrapped.append(_ddp(model, neg_loss, shard, accum_reduction))
+        ddp = wrapped[0]
+        return (lambda m, b, seed: ddp(shard_batch(b, mesh), seed)), ddp.no_sync
 
     def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
         if state.model is not model:
@@ -210,17 +299,27 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
         seed = draw_seed(state.generator)
         batch = to_device(batch, device)
         state.optimizer.zero_grad(set_to_none=True)
-        with cudnn_fp32_deterministic():  # the convolutions' backward reads them
+        fn, no_sync = objective()
+        # the convolutions' backward reads the cuDNN flags, remat's re-runs
+        # in the backward the shard
+        with cudnn_fp32_deterministic(), partition.sharded(shard):
             if accum_steps == 1:
-                loss = neg_loss(model, batch, seed)
+                loss = fn(model, batch, seed)
                 loss.backward()
                 loss = loss.detach()
             else:
-                loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
-                                            accum_reduction)
+                loss = accumulate_gradients(fn, model, batch, seed, accum_steps,
+                                            accum_reduction, no_sync)
+        if shard is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(loss, group=shard.data_group)
+            if accum_reduction == "mean":
+                loss = loss / shard.n_data
         if optimizer.grad_clip is not None:  # over the trainable parameters alone
-            clip_by_global_norm([p.grad for p in state.trainable_parameters()
-                                 if p.grad is not None], optimizer.grad_clip)
+            grads = [(p, p.grad) for p in state.trainable_parameters() if p.grad is not None]
+            clip_by_global_norm([g for _, g in grads], optimizer.grad_clip,
+                                _global_norm(state, grads, shard))
         state.optimizer.step()
         state.step += 1
         return state, loss
@@ -266,13 +365,17 @@ def train_epoch(state: TrainState, step_fn, data, batch_size: int,
 
 
 def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
-                    accum_steps: int = 1, accum_reduction: str = "mean", device=None):
+                    accum_steps: int = 1, accum_reduction: str = "mean", device=None,
+                    mesh=None):
     """The whole-epoch train function ``run(state, data, generator,
     batch_size) -> (state, mean loss)``, the counterpart of the JAX
     package's ``make_scan_epoch``: ``train_epoch`` over ``make_train_step``.
     The steps run eagerly and the host syncs once, for the mean loss; a
-    CUDA graph of the step is later work."""
-    step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device)
+    CUDA graph of the step is later work. Under ``mesh`` every rank draws
+    the same permutation and each step runs the rank's slice of the batch
+    (``make_train_step``)."""
+    step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                           mesh=mesh)
 
     def run(state: TrainState, data, generator: torch.Generator,
             batch_size: int) -> Tuple[TrainState, float]:

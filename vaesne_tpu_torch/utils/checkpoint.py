@@ -88,11 +88,11 @@ def _save(path: str, state: Dict[str, Any], config: Optional[Dict[str, Any]]) ->
             json.dump(config, f, indent=2, default=str)
 
 
-def save_checkpoint(path: str, state: TrainState,
-                    config: Optional[Dict[str, Any]] = None) -> None:
-    """Save the whole train state (and the config as JSON) into the
-    directory ``path``."""
-    _save(path, state.state_dict(), config)
+def save_checkpoint(path: str, state, config: Optional[Dict[str, Any]] = None) -> None:
+    """Save the whole train state, a ``TrainState`` or its
+    ``state_dict()`` (a tensor-parallel run's gathered one), and the config
+    as JSON, into the directory ``path``."""
+    _save(path, state.state_dict() if isinstance(state, TrainState) else state, config)
 
 
 def save_params(path: str, model: nn.Module,

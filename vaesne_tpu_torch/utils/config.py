@@ -46,7 +46,8 @@ class TrainConfig:
     # the JAX package's choice of one lax.scan per epoch; the port's
     # train_loop runs make_scan_epoch's eager loop whatever its value
     scan_epoch: bool = True
-    # "auto", "none" and "1" train on one card; a multi-device spec raises
+    # parallel.resolve_mesh: "none"/"1" one process, "N" data parallel over N
+    # ranks, "DxM" with M-way tensor parallelism, "auto" every visible card
     mesh: str = "auto"
     ckpt_dir: str = "./ckpt"
     log_dir: str = "./logs"
