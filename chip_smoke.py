@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, training and evaluation paths, the
-image VAE's, and the contrastive and regression drivers', on one CUDA card
-and check them.
+image VAE's, the contrastive and regression drivers', the multi-GPU paths,
+the auxiliary blocks and the reference-weight import, on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -86,7 +87,18 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      captured input with its shard seed, the ranks' mask streams disjoint;
      (c) a 1x2 tensor-parallel step (2 heads a rank); (d) DP crossmodal_ci
      at K = 100 against one process; per-rank samples/s and peak memory
-     (two ranks on one card: not a scaling number).
+     (two ranks on one card: not a scaling number);
+ 15. the extras and the reference migration: (a) TransformerModel at the
+     flagship's block widths (E 32, 4 heads, ff 32, 4 layers) over
+     [R, 982, 32] with a key-padding mask and a [R, 5, 32] context, R the
+     fewest rows that route, its forward at rate 0 and a backward at
+     dropout 0.1 on K1 and K2 against the plain path on the card, launches
+     as predicted, K1/K2 on the captured input timed beside their bounds;
+     (b) RelativeMultiHeadAttention over 982x982 (no kernel serves it) on
+     the card against the CPU, and its time; (c) GumbelSoftmax with a fixed
+     generator on the card against the CPU; (d) a stand-in whole-module
+     reference pickle imported through import_reference_pickle into a
+     PhotoSpecMMVAE on the card, its crossmodal_ci against the CPU port.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -141,9 +153,10 @@ from vaesne_tpu_torch.experiments import (
     try_models,
 )
 from vaesne_tpu_torch.experiments.common import optimizer_from_config, resolve_dataset
+from vaesne_tpu_torch.nn import GumbelSoftmax, RelativeMultiHeadAttention, TransformerModel
 from vaesne_tpu_torch.ops import _build, laplace_routes_to_kernel, routes_to_kernel
 from vaesne_tpu_torch.training import to_device
-from vaesne_tpu_torch.utils import fold_in
+from vaesne_tpu_torch.utils import fold_in, torch_port
 from vaesne_tpu_torch.utils.config import (
     ContrastiveConfig,
     ImageVAEConfig,
@@ -2445,6 +2458,320 @@ def phase_multigpu(seed):
     return res, worst
 
 
+# -- extras and migration ------------------------------------------------------------
+
+# phase 15: TransformerModel at the flagship's block widths over a spectrum-
+# length sequence and the spectra decoder's 5-token context (4 latent tokens
+# and the phase token); RelativeMultiHeadAttention over the same grid on
+# EXTRAS_RELATIVE events; the stand-in reference pickle served at K_EXTRAS
+EXTRAS_CONTEXT = LATENT_LEN + 1
+EXTRAS_RELATIVE = 8
+K_EXTRAS = 4
+STAND_IN = '''"""A stand-in for the reference VAESNe package: a module whose
+state_dict() holds the reference's parameter names."""
+import torch
+
+
+class photospecMMVAE(torch.nn.Module):
+    def __init__(self, tensors):
+        super().__init__()
+        self.tensors = dict(tensors)
+
+    def state_dict(self, *args, **kwargs):
+        return dict(self.tensors)
+'''
+
+
+def extras_rows():
+    """The fewest rows for which TransformerModel's 982x982 self-attention
+    routes to the kernels."""
+    rows = 1
+    while not routes_to_kernel(rows, HEADS, NS, NS):
+        rows += 1
+    return rows
+
+
+def extras_prediction(rows, rate, backward):
+    """K1/K2 launches of one TransformerModel call: each routed grid of a
+    layer (self-attention 982x982, cross-attention 982x5, context
+    self-attention 5x5) launches K1 once; with a backward, remat re-runs
+    the block's forward (K1 again) and K2 runs once."""
+    grids = LAYERS * sum(routes_to_kernel(rows, HEADS, lq, lk) for lq, lk in (
+        (NS, NS), (NS, EXTRAS_CONTEXT), (EXTRAS_CONTEXT, EXTRAS_CONTEXT)))
+    k1 = 2 * grids if backward else grids
+    return (k1 if rate > 0 else 0, k1, grids if backward else 0, 0, 0)
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The layers' routed attentions on the plain version (the same
+    dropout hash), on whatever device the tensors lie."""
+    real = layers.fused_attention
+    layers.fused_attention = attention.attention_reference
+    try:
+        yield
+    finally:
+        layers.fused_attention = real
+
+
+def phase_transformer_model(seed):
+    """Phase 15(a): TransformerModel(32, 4 heads, ff 32, 4 layers) over
+    [R, 982, 32] with a key-padding mask and a [R, 5, 32] context, R the
+    fewest rows that route: the forward at rate 0 and a backward at
+    dropout 0.1 against the same module on the plain path on the card,
+    with phase 3's fp32 gates (forward max-abs ≤ 1e-5, gradients ≤ 1e-4 of
+    max |plain|), the launches as extras_prediction; K1/K2 on the captured
+    self-attention input against their plain versions, timed beside their
+    bounds. Returns the launches of both runs, the worst errors and the
+    times."""
+    rows = extras_rows()
+    log(15, f"(a) TransformerModel: R = {rows}, the fewest rows for which the {NS}x{NS} "
+            f"self-attention routes (routes_to_kernel)")
+    model = init_params(TransformerModel(MODEL_DIM, HEADS, FF_DIM, LAYERS, dropout=DROPOUT),
+                        torch.Generator().manual_seed(seed + 15)).cuda()
+    g = torch.Generator("cuda").manual_seed(seed + 15)
+    x = torch.randn(rows, NS, MODEL_DIM, device="cuda", generator=g)
+    ctx = torch.randn(rows, EXTRAS_CONTEXT, MODEL_DIM, device="cuda", generator=g)
+    mask = torch.rand(rows, NS, device="cuda", generator=g) < 0.2
+    w = torch.randn(rows, NS, MODEL_DIM, device="cuda", generator=g)
+    launches = {}
+
+    model.eval()
+    store = []
+    with torch.no_grad():
+        reset_counts()
+        with capture_attention(rows, NS, NS, store):
+            out = model(x, ctx, mask)
+        torch.cuda.synchronize()
+        launches["forward"] = dict(zip(COUNTERS, kernel_counts()))
+        with plain_attention():
+            ref = model(x, ctx, mask)
+    err_f = (out - ref).abs().max().item()
+    want = dict(zip(COUNTERS, extras_prediction(rows, 0.0, False)))
+    log(15, f"(a) forward at rate 0: launches {launches['forward']} (predicted {want}); "
+            f"against the plain path on the card max-abs {err_f:.3e}")
+    assert launches["forward"] == want, (launches["forward"], want)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    assert np.isfinite(err_f) and err_f <= 1e-5, err_f
+
+    model.train()
+    params = [x.requires_grad_(), ctx.requires_grad_(), *model.parameters()]
+
+    def grads():
+        return torch.autograd.grad((model(x, ctx, mask, seed=seed) * w).sum(), params)
+
+    reset_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    launches["backward"] = dict(zip(COUNTERS, kernel_counts()))
+    with plain_attention():
+        want_g = grads()
+    x.requires_grad_(False)
+    ctx.requires_grad_(False)
+    # a key projection's bias adds one constant to every logit of a query,
+    # which the softmax cancels: its gradient is 0 up to round-off, so it is
+    # held against the largest gradient of all, the rest each against its own
+    names = ["x", "context"] + [n for n, _ in model.named_parameters()]
+    scale = max(b.abs().max().item() for b in want_g)
+    rel = max(_rel(a, b) for n, a, b in zip(names, got, want_g) if not n.endswith("k_proj.bias"))
+    zero = max((a - b).abs().max().item() / scale
+               for n, a, b in zip(names, got, want_g) if n.endswith("k_proj.bias"))
+    want = dict(zip(COUNTERS, extras_prediction(rows, DROPOUT, True)))
+    log(15, f"(a) forward and backward at dropout {DROPOUT}: launches {launches['backward']} "
+            f"(predicted {want}); gradients of x, the context and {len(params) - 2} parameters "
+            f"against the plain path on the card, worst relative {rel:.3e}; the key "
+            f"projections' biases (0 up to round-off) {zero:.3e} of the largest gradient")
+    assert launches["backward"] == want, (launches["backward"], want)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert np.isfinite(rel) and rel <= 1e-4, rel
+    assert np.isfinite(zero) and zero <= 1e-4, zero
+
+    q, k, v, m = (t.detach() for t in store)
+    del store[:]
+    worst = hold_attention(q, k, v, m, f"(a) captured [{rows}, {NS}, {MODEL_DIM}] "
+                                       f"({m.float().mean().item():.1%} of keys masked)", 15)
+    dout = randn_like(q, 1510)
+    o, mx, l = attention.fused_attention_fwd(q, k, v, m, HEADS, DROPOUT, 5)
+    t = {}
+    for key, fn in (("fwd0", lambda: attention.fused_attention(q, k, v, m, HEADS)),
+                    ("fwd", lambda: attention.fused_attention_fwd(q, k, v, m, HEADS, DROPOUT,
+                                                                  5)),
+                    ("bwd", lambda: attention.fused_attention_bwd(q, k, v, m, o, mx, l, dout,
+                                                                  HEADS, DROPOUT, 5))):
+        t[key], kernels, _ = device_kernels(fn)
+        assert kernels == 1, (key, kernels)
+    t.update({"plain_f0": time_ms(lambda: attention.attention_reference(q, k, v, m, HEADS)),
+              "plain_f": time_ms(lambda: attention.attention_reference(q, k, v, m, HEADS,
+                                                                       DROPOUT, 5)),
+              "plain_b": time_ms(lambda: attention.attention_backward_reference(
+                  q, k, v, m, dout, HEADS, DROPOUT, 5)),
+              "lib_f0": time_ms(sdpa_call(q, k, v, m)),
+              "lib_f": time_ms(sdpa_call(q, k, v, m, DROPOUT)),
+              "lib_b": time_ms(sdpa_bwd_call(q, k, v, m, DROPOUT))})
+    t["b_f0"] = attention_bound(rows, NS, NS, torch.float32, True)
+    t["b_f"] = attention_bound(rows, NS, NS, torch.float32, True, stats=True)
+    t["b_b"] = attention_bwd_bound(rows, NS, NS, torch.float32)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(15, f"(a) R={rows} {NS}x{NS} masked fp32, device ms per launch: K1 rate 0 "
+            f"{t['fwd0']:.4f} (bound {t['b_f0'][0]:.4f}, {t['b_f0'][1]}), rate {DROPOUT} "
+            f"{t['fwd']:.4f} (bound {t['b_f'][0]:.4f}); K2 {t['bwd']:.4f} (bound "
+            f"{t['b_b'][0]:.4f}, {t['b_b'][1]}); CUDA events, ms per call: plain rate 0 "
+            f"{t['plain_f0']:.3f}, rate {DROPOUT} {t['plain_f']:.3f}, backward "
+            f"{t['plain_b']:.3f}; library sdpa rate 0 {t['lib_f0']:.4f}, rate {DROPOUT} "
+            f"{t['lib_f']:.4f}, backward {t['lib_b']:.4f}; on {smi}")
+    return launches, worst, t
+
+
+def phase_relative_attention(seed):
+    """Phase 15(b): RelativeMultiHeadAttention (E 32, 4 heads, 982x982,
+    one event fully masked, the mask 0 where masked) on the card against
+    the CPU, max-abs ≤ 1e-5 of max |CPU|, and its time: the one attention
+    of the port that no kernel serves."""
+    model = init_params(RelativeMultiHeadAttention(MODEL_DIM, HEADS),
+                        torch.Generator().manual_seed(seed + 16)).eval()
+    g = torch.Generator().manual_seed(seed + 16)
+    q = torch.randn(EXTRAS_RELATIVE, NS, MODEL_DIM, generator=g)
+    kv = torch.randn(EXTRAS_RELATIVE, NS, MODEL_DIM, generator=g)
+    keep = torch.rand(EXTRAS_RELATIVE, 1, 1, NS, generator=g) >= 0.2
+    keep[0] = False
+    with torch.no_grad():
+        cpu = model(q, kv, kv, keep)
+        model.cuda()
+        qc, kvc, keepc = q.cuda(), kv.cuda(), keep.cuda()
+        card = model(qc, kvc, kvc, keepc)
+        rel = _rel(card.cpu(), cpu)
+        ms = time_ms(lambda: model(qc, kvc, kvc, keepc))
+        dev, kernels, _ = device_kernels(lambda: model(qc, kvc, kvc, keepc), n=20)
+    dh = MODEL_DIM // HEADS
+    # q, k, v and the output [B, L, E] and the mask moved once; 8·hd flop per
+    # (query, key, head): QKᵀ, Q·R_kᵀ, A·V and A·R_v
+    b = bound(4 * EXTRAS_RELATIVE * NS * MODEL_DIM * 4 + EXTRAS_RELATIVE * NS,
+              EXTRAS_RELATIVE * HEADS * NS * NS * 8 * dh, PEAK_FLOPS[torch.float32])
+    log(15, f"(b) RelativeMultiHeadAttention [{EXTRAS_RELATIVE}, {NS}, {MODEL_DIM}], 4 heads, "
+            f"masked (event 0 fully): card against CPU relative {rel:.3e}; {ms:.3f} ms per call "
+            f"(CUDA events), device {dev:.3f} ms in {kernels} kernels, bound of the attention "
+            f"alone {b[0]:.4f} ms ({b[1]}); no kernel serves it")
+    assert card.shape == q.shape and bool(torch.isfinite(card).all())
+    assert np.isfinite(rel) and rel <= 1e-5, rel
+    return ms, dev
+
+
+def phase_gumbel(seed):
+    """Phase 15(c): GumbelSoftmax over the [8, 982, 32] tokens with a fixed
+    generator on the card, and the CPU on the same draw: logits, probs and
+    the soft and hard samples within 1e-5 of max |CPU|, the hard sample
+    one-hot, its gradient the soft one's."""
+    model = init_params(GumbelSoftmax(MODEL_DIM, 8), torch.Generator().manual_seed(seed + 17))
+    x = torch.randn(8, NS, MODEL_DIM, generator=torch.Generator().manual_seed(seed + 17))
+    model.cuda()
+    u = torch.rand((8 * NS, 8), generator=torch.Generator("cuda").manual_seed(seed + 17),
+                   device="cuda")
+    a = model(x.cuda(), 0.5, False, generator=torch.Generator("cuda").manual_seed(seed + 17))
+    assert torch.equal(a[2], model(x.cuda(), 0.5, False, u=u)[2])
+    worst = 0.0
+    for hard in (False, True):
+        card = model(x.cuda(), 0.5, hard, u=u)
+        cpu = copy.deepcopy(model).cpu()(x, 0.5, hard, u=u.cpu())
+        worst = max(worst, *(_rel(c.detach().cpu(), p.detach()) for c, p in zip(card, cpu)))
+        if hard:
+            y = card[2].detach()  # (1 − y) + y may round off 1 by an ulp
+            assert bool(((y == 0).sum(-1) == 7).all()) and bool(((y - 1).abs().amin(-1)
+                                                                  <= 1e-6).all())
+    w = torch.randn(8 * NS, 8, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    gs = [torch.autograd.grad((model(x.cuda(), 0.5, hard, u=u)[2] * w).sum(),
+                              list(model.parameters())) for hard in (False, True)]
+    st = max(_rel(h, s) for h, s in zip(gs[1], gs[0]))
+    log(15, f"(c) GumbelSoftmax [{8 * NS}, 8] on the card against the CPU, the same draw: "
+            f"worst relative {worst:.3e}; straight-through gradient against the soft one "
+            f"{st:.3e}")
+    assert np.isfinite(worst) and worst <= 1e-5, worst
+    assert np.isfinite(st) and st <= 1e-5, st
+
+
+def phase_reference_pickle(seed):
+    """Phase 15(d): a stand-in whole-module reference pickle (class
+    photospecMMVAE of a VAESNe package written under build/) of the
+    flagship's weights under the reference's names, imported through
+    import_reference_pickle into a PhotoSpecMMVAE on the card, bitwise the
+    weights it was made from; crossmodal_ci at K = K_EXTRAS on the card
+    against the CPU port on the same weights and pinned posterior noise,
+    max-abs ≤ 1e-4 of max |CPU| (phase 5's serving gate). Returns the K1
+    launches of the card's call."""
+    root = os.path.join(SMOKE_DIR, "reference_pickle")
+    shutil.rmtree(root, ignore_errors=True)
+    pkg = os.path.join(root, "package")
+    os.makedirs(os.path.join(pkg, "VAESNe"))
+    with open(os.path.join(pkg, "VAESNe", "__init__.py"), "w"):
+        pass
+    with open(os.path.join(pkg, "VAESNe", "models.py"), "w") as f:
+        f.write(STAND_IN)
+    source = flagship(seed, dropout=0.0)
+    sys.path.insert(0, pkg)
+    try:
+        from VAESNe import models as stand_in
+
+        torch.save(stand_in.photospecMMVAE(torch_port.to_reference_state_dict(
+            source.state_dict())), os.path.join(root, "model.pth"))
+    finally:
+        sys.path.remove(pkg)
+        for name in [m for m in sys.modules if m == "VAESNe" or m.startswith("VAESNe.")]:
+            del sys.modules[name]
+    state = torch_port.import_reference_pickle(os.path.join(root, "model.pth"),
+                                               package_path=pkg)
+    assert all(t.device.type == "cuda" for t in state.values())
+    model = flagship(seed + 1, dropout=0.0).cuda()
+    model.load_state_dict(state, strict=True)
+    assert all(torch.equal(v.cpu(), source.state_dict()[k]) for k, v in model.state_dict().items())
+    n = 4
+    photo, spec = make_batch(n, seed + 18)
+    card = InferenceServer(model, buckets=BUCKETS, seed=seed)
+    cpu = InferenceServer(source.eval(), buckets=BUCKETS, seed=seed, device="cpu")
+    want = encoder_launches(0, BUCKETS[0]) + decoder_launches(1, K_EXTRAS * BUCKETS[0])
+    with pinned_noise(seed + 18):
+        reset_counts()
+        got = card.crossmodal_ci(photo, spec, K=K_EXTRAS, alpha=0.1)
+        torch.cuda.synchronize()
+        launches = dict(zip(COUNTERS, kernel_counts()))
+        ref = cpu.crossmodal_ci(photo, spec, K=K_EXTRAS, alpha=0.1)
+    rel = max(_rel(a.cpu(), b) for a, b in zip(got, ref))
+    log(15, f"(d) stand-in photospecMMVAE pickle → import_reference_pickle → PhotoSpecMMVAE on "
+            f"the card (weights bitwise); crossmodal_ci K={K_EXTRAS} n={n}: K1 launches "
+            f"{launches['K1']} (predicted {want}), card against CPU relative {rel:.3e}")
+    assert launches["K1"] == want and launches["K2"] == 0, (launches, want)
+    assert all(t.shape == (n, NS) and bool(torch.isfinite(t).all()) for t in got)
+    assert np.isfinite(rel) and rel <= 1e-4, rel
+    shutil.rmtree(root, ignore_errors=True)
+    return launches["K1"]
+
+
+def phase_extras(seed):
+    """Phase 15, the extras and the reference migration. Returns the keys
+    its kernels add to the kernels line, and the worst fp32 errors of (a)."""
+    t_phase = time.perf_counter()
+    launches, worst, t = phase_transformer_model(seed)
+    rel_ms, rel_dev = phase_relative_attention(seed)
+    phase_gumbel(seed)
+    served = phase_reference_pickle(seed)
+    log(15, f"phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    fwd, bwd = launches["forward"], launches["backward"]
+    extra = {
+        "attention_fwd": {"launches_extras": fwd["K1"] + served,
+                          "ms_extras": t["fwd0"], "bound_ms_extras": t["b_f0"][0],
+                          "plain_ms_extras": t["plain_f0"], "library_ms_extras": t["lib_f0"],
+                          "relative_attention_ms": rel_ms,
+                          "relative_attention_device_ms": rel_dev},
+        "attention_fwd_dropout": {"launches_extras": bwd["K1 rate>0"],
+                                  "ms_extras": t["fwd"], "bound_ms_extras": t["b_f"][0],
+                                  "plain_ms_extras": t["plain_f"],
+                                  "library_ms_extras": t["lib_f"]},
+        "attention_bwd": {"launches_extras": bwd["K2"], "ms_extras": t["bwd"],
+                          "bound_ms_extras": t["b_b"][0], "plain_ms_extras": t["plain_b"],
+                          "library_ms_extras": t["lib_b"]},
+    }
+    return extra, worst
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -2569,6 +2896,10 @@ def main(argv=None):
     multi, (err_f, err_b) = phase_multigpu(args.seed)
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], err_f)
     errs["attention_bwd"] = max(errs["attention_bwd"], err_b)
+    torch.cuda.empty_cache()
+    extras_extra, extras_errs = phase_extras(args.seed)
+    for name, err in extras_errs.items():
+        errs[name] = max(errs[name], err)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, _, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -2614,7 +2945,13 @@ def main(argv=None):
     # launches of one step at dropout 0.1: launches_nccl_world1,
     # launches_dp_rank{0,1} (2x1, 96 events a rank), launches_tp_rank{0,1}
     # (1x2), and on attention_fwd K1 at rate 0 per rank of DP crossmodal_ci
-    # at buckets 32 and 64 (launches_dp_serving_rank{0,1}). The Laplace
+    # at buckets 32 and 64 (launches_dp_serving_rank{0,1}), and phase 15's:
+    # launches of TransformerModel's forward at rate 0 and of the stand-in
+    # pickle's crossmodal_ci (K1 rate 0), of its backward at 0.1 (K1 rate
+    # 0.1, K2) (launches_extras), and on its captured [1, 982, 32] input the
+    # fp32 times, bounds, plain versions and SDPA (*_extras); attention_fwd
+    # also carries RelativeMultiHeadAttention's time per call and device time
+    # at [8, 982, 32] (relative_attention_ms, _device_ms). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -2640,7 +2977,7 @@ def main(argv=None):
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
              **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
              **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}),
-             **multi_extra.get(r[0], {}))
+             **multi_extra.get(r[0], {}), **extras_extra.get(r[0], {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,3 +142,56 @@ def test_no_forbidden_import_in_source():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+# Names of the JAX package with no port counterpart, and why: the jax.Array
+# alias; the Pallas switches and tiles and the TPU's packed [B, E, L] head
+# layout; the JAX sharding specs, placements and custom_partitioning helpers
+# (a rank holds its own slice, ops/partition.py); the compute dtype of
+# VAESNE_BF16 (the port takes precision="bf16", an autocast); flax's init
+# (the port's is utils.init_params).
+JAX_ONLY = {
+    "Array", "use_pallas", "pallas_interpret", "pack_heads", "unpack_heads", "ROW_TILE",
+    "axes_on_dim", "batch_axes", "batch_only", "n_shards", "replicated", "shard_index",
+    "shard_kernels", "spec_entry", "batch_sharding", "compute_dtype", "init_model",
+}
+
+
+def _public_names(path: Path):
+    """Functions, classes and assigned names at a module's top level (not
+    its imports), without the private ones."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                if isinstance(target, ast.Name):
+                    names.add(target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_jax_module_and_name_has_a_port_counterpart():
+    """Every module of vaesne_tpu has a module at the same path in the
+    port, which defines or imports each of its public names but the
+    JAX-only ones."""
+    jax_root = REPO / "vaesne_tpu"
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root)
+        port = PORT / rel
+        assert port.exists(), f"no port module for vaesne_tpu/{rel}"
+        module = __import__(".".join(("vaesne_tpu_torch",) + rel.with_suffix("").parts)
+                            .removesuffix(".__init__"), fromlist=["_"])
+        missing = sorted(n for n in _public_names(path) - JAX_ONLY if not hasattr(module, n))
+        assert not missing, f"vaesne_tpu_torch/{rel} lacks {missing}"
+
+
+def test_safelog10_and_goldstein_keys_match_jax():
+    from vaesne_tpu import training as jtraining
+    from vaesne_tpu.data import goldstein as jgoldstein
+    from vaesne_tpu_torch import training as ttraining
+    from vaesne_tpu_torch.data import goldstein as tgoldstein
+
+    assert tgoldstein.GOLDSTEIN_KEYS == jgoldstein.GOLDSTEIN_KEYS
+    for x in (0.0, -3.0, 1e-12, 0.5, 12345.678):
+        assert ttraining.safelog10(x) == jtraining.safelog10(x)

@@ -27,6 +27,12 @@ from ..training import resolve_device
 
 Batch = Tuple
 
+# the arrays of a Goldstein npz file
+GOLDSTEIN_KEYS = (
+    "training_idx", "testing_idx", "flux", "wavelength", "mask", "phase",
+    "photoflux", "phototime", "photomask", "photowavelength", "identity",
+)
+
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
     with np.load(path) as f:

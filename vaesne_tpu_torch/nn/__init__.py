@@ -12,6 +12,15 @@ from .layers import (
     TransformerStack,
     sinusoidal_embedding_2d,
 )
+from .extras import (
+    GumbelSoftmax,
+    LearnableFourierEncoding,
+    RelativeMultiHeadAttention,
+    RelativePosition,
+    TransformerModel,
+    flatten,
+    reshape,
+)
 from .image_layers import (
     HostImgTransformerDecoder,
     HostImgTransformerDecoderHybrid,
@@ -21,9 +30,11 @@ from .photometric_layers import PhotometricTransformerDecoder, PhotometricTransf
 from .spectra_layers import SpectraTransformerDecoder, SpectraTransformerEncoder
 
 __all__ = [
-    "HostImgTransformerDecoder", "HostImgTransformerDecoderHybrid", "HostImgTransformerEncoder",
-    "LN_EPS", "MLP", "MultiHeadAttention", "PatchEmbedding", "PhotometricTransformerDecoder",
-    "PhotometricTransformerEncoder", "SingleLayerMLP", "SinusoidalEmbedding",
-    "SinusoidalMLPEmbedding", "SpectraTransformerDecoder", "SpectraTransformerEncoder",
-    "TransformerBlock", "TransformerStack", "sinusoidal_embedding_2d",
+    "GumbelSoftmax", "HostImgTransformerDecoder", "HostImgTransformerDecoderHybrid",
+    "HostImgTransformerEncoder", "LN_EPS", "LearnableFourierEncoding", "MLP",
+    "MultiHeadAttention", "PatchEmbedding", "PhotometricTransformerDecoder",
+    "PhotometricTransformerEncoder", "RelativeMultiHeadAttention", "RelativePosition",
+    "SingleLayerMLP", "SinusoidalEmbedding", "SinusoidalMLPEmbedding",
+    "SpectraTransformerDecoder", "SpectraTransformerEncoder", "TransformerBlock",
+    "TransformerModel", "TransformerStack", "flatten", "reshape", "sinusoidal_embedding_2d",
 ]

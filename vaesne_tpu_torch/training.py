@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +33,12 @@ from .ops import partition
 from .utils.rng import draw_seed, fold_in
 
 LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
+
+
+def safelog10(x: float) -> float:
+    """log10 clamped at 1e-10 (the reference's training utility; unused
+    there, kept for its API)."""
+    return math.log10(max(1e-10, x))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -10,7 +10,9 @@ per leaf
   Dense/Conv/LayerNorm ``bias`` → ``bias``
   LayerNorm ``scale``         → ``weight``
   Embed ``embedding``         → ``weight``
-  ``initbottleneck``, ``pos_embed`` → themselves
+  ``initbottleneck``, ``pos_embed``, ``embeddings_table`` → themselves
+
+A Dense without bias (``nn/extras.py``'s ``freq``) has a kernel alone.
 
 A square conv kernel's ``.T`` would also pass the shape check, with kh and
 kw swapped: conv kernels take their own permutation.
@@ -27,7 +29,8 @@ import torch
 from torch import nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias", "initbottleneck": "initbottleneck", "pos_embed": "pos_embed"}
+         "bias": "bias", "initbottleneck": "initbottleneck", "pos_embed": "pos_embed",
+         "embeddings_table": "embeddings_table"}
 # the standard deviation of a unit normal truncated to [-2, 2]: flax's
 # variance_scaling divides by it so the truncated draw keeps its variance
 _TRUNC_STD = 0.87962566103423978
@@ -143,7 +146,8 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     alone fixes the weights: Linear weight and bias ~ U(±1/√fan_in),
     Conv2d weight lecun-normal as flax's default (a normal truncated at ±2σ,
     rescaled to variance 1/fan_in, fan_in = kh·kw·in) and bias 0, LayerNorm
-    1 and 0, Embedding and ``initbottleneck`` ~ N(0, 1), ``pos_embed`` 0."""
+    1 and 0, Embedding and ``initbottleneck`` ~ N(0, 1), ``pos_embed`` 0,
+    ``embeddings_table`` xavier-uniform (flax's default for it)."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             fan_in = m.weight[0].numel()
@@ -154,8 +158,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Linear):
             bound = 1.0 / math.sqrt(m.in_features)
             for p in (m.weight, m.bias):
-                u = torch.rand(p.shape, generator=generator)
-                p.copy_((2.0 * u - 1.0) * bound)
+                if p is not None:
+                    u = torch.rand(p.shape, generator=generator)
+                    p.copy_((2.0 * u - 1.0) * bound)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()
@@ -165,4 +170,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.initbottleneck.copy_(torch.randn(m.initbottleneck.shape, generator=generator))
         if isinstance(getattr(m, "pos_embed", None), nn.Parameter):
             m.pos_embed.zero_()
+        if isinstance(getattr(m, "embeddings_table", None), nn.Parameter):
+            rows, units = m.embeddings_table.shape
+            bound = math.sqrt(6.0 / (rows + units))
+            u = torch.rand(m.embeddings_table.shape, generator=generator)
+            m.embeddings_table.copy_((2.0 * u - 1.0) * bound)
     return module
