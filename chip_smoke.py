@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, training and evaluation paths, the
 image VAE's, the contrastive and regression drivers', the multi-GPU paths,
-the auxiliary blocks and the reference-weight import, on one CUDA card and
-check them.
+the auxiliary blocks, the reference-weight import and the compute switches,
+on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -99,6 +99,24 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      generator on the card against the CPU; (d) a stand-in whole-module
      reference pickle imported through import_reference_pickle into a
      PhotoSpecMMVAE on the card, its crossmodal_ci against the CPU port.
+ 16. the JAX package's compute switches, each set for its own sub-phase
+     and restored after it (phases 1-15 run with all three unset): (a)
+     VAESNE_BF16=1 train_photospectra.main at the flagship widths for 3
+     epochs, every epoch's launches phase 10's, K1/K2 on bf16 q, k, v and
+     K3 on bf16 loc, 2 epochs resumed to 3 bitwise the run, fp32 parameters
+     and moments, samples/s and the busy share beside phase 10's fp32; (b)
+     bench.py's VAESNE_REMAT=0 B = 192 step in bf16 and fp32: launches as
+     predicted without remat's re-run, the loss and gradients bitwise remat
+     on's, samples/s and peak memory both ways; (c) VAESNE_BF16=1
+     eval_goldstein against artifacts/eval/ with phase 11's gates (a miss
+     is reported as a finding), events/s beside fp32; (d)
+     VAESNE_DROPOUT_BITS=16 and 32: K1/K2 against their plain versions at
+     R = 768 with phase 3's gates, their times, the keep rate, and the
+     forward's and backward's masks against the plain mask; (e) bf16 K2 on
+     Queue 3's near-uniform 983x983 input beside the JAX kernel's error
+     (artifacts/queue3_bf16_k2/); (f) the four newly bridged checkpoints
+     served on the card within 1e-4 of their JAX outputs, K1's launches as
+     predicted.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -209,6 +227,17 @@ HEAD_REF = os.path.join(HEAD_CKPT, "jax_absdiff.npy")
 HEAD_TPU = os.path.join("artifacts", "eval", "avg_absdiff_photometry2goldstein_param_mmvae.npz")
 REGRESSION_BACKBONES = {"mmvae": EVAL_CKPT, "contrast": CONTRA_CKPT, "end2end": None}
 
+# phase 16: the JAX package's compute switches, each set for one sub-phase
+SWITCHES = ("VAESNE_BF16", "VAESNE_REMAT", "VAESNE_DROPOUT_BITS")
+BF16_EPOCHS, REMAT_STEPS = 3, 4
+# the bridged unimodal and ZTF checkpoints and their reference events
+# (tests/torch_parity.py::REFERENCE_EVENTS): (data kind, tuple builder)
+BRIDGED_VAES = {"goldstein_photometry_4-4": ("goldstein", "photometry_tuple"),
+                "goldstein_spectra_4-4": ("goldstein", "spectra_tuple"),
+                "ztf_photospec_4-4_K8_beta0.5": ("ztf", "multimodal_tuple"),
+                "ztf_spectra_4-4": ("ztf", "spectra_tuple")}
+REFERENCE_EVENTS = dict(n=4, seed=1)
+
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s, fp32
 # FMA-pipe flop/s, bf16 tensor-core flop/s
 HBM_BYTES_S = 3.35e12
@@ -309,6 +338,45 @@ def attention_inputs(rows, lq, lk, masked, seed, full_row=False):
         if full_row:
             mask[0] = True
     return q, k, v, mask
+
+
+# Queue 3's input: a near-uniform, key-padded 983 x 983 attention like the
+# contrastive spectra context's (train_contrastive model.selfattn=true),
+# made with numpy from a seed so that both packages see the same values
+QUEUE3 = os.path.join("artifacts", "queue3_bf16_k2", "jax_interpret_error.json")
+QUEUE3_SEED, QUEUE3_ROWS, QUEUE3_MASKED, QUEUE3_MAX_LOGIT = 0, 2, 512, 0.093
+
+
+def bf16_grid(x):
+    """float32 numpy ``x`` rounded to the nearest bfloat16 (ties to even),
+    kept as float32."""
+    b = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    b = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return b.view(np.float32)
+
+
+def near_uniform_attention_inputs(seed=QUEUE3_SEED, rows=QUEUE3_ROWS):
+    """(q, k, v, dout) float32 numpy [rows, 983, 32] on the bfloat16 grid and
+    the key-padding mask bool [rows, 983], 4 heads of 8: the statistics of
+    the context self-attention input of train_contrastive
+    model.selfattn=true, captured on the card. Its q, k and v are a
+    per-head mean, the projections' biases at random initialisation (norm
+    0.3–0.5 a head), plus a spread of 0.04; the last 512 of 983 keys are
+    masked (52.1%); q is scaled so that the largest |logit| over the
+    observed keys is 0.093; dout is standard normal."""
+    rng = np.random.default_rng(seed)
+    mu = rng.normal(0.0, 0.15, (3, 1, 1, MODEL_DIM)).astype(np.float32)
+    q, k, v = (mu[i] + np.float32(0.04) * rng.standard_normal((rows, CONTEXT, MODEL_DIM),
+                                                              dtype=np.float32)
+               for i in range(3))
+    dout = rng.standard_normal((rows, CONTEXT, MODEL_DIM), dtype=np.float32)
+    mask = np.zeros((rows, CONTEXT), bool)
+    mask[:, CONTEXT - QUEUE3_MASKED:] = True
+    dh = MODEL_DIM // HEADS
+    logits = np.einsum("rqhd,rkhd->rhqk", q.reshape(rows, CONTEXT, HEADS, dh).astype(np.float64),
+                       k.reshape(rows, CONTEXT, HEADS, dh).astype(np.float64)) / np.sqrt(dh)
+    q = q * np.float32(QUEUE3_MAX_LOGIT / np.abs(logits[..., ~mask[0]]).max())
+    return (*(bf16_grid(a) for a in (q, k, v, dout)), mask)
 
 
 def bound(nbytes, ops, peak_ops_s):
@@ -457,6 +525,9 @@ def phase_environment():
                            text=True, timeout=60, check=True).stdout.split()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    for name in SWITCHES:  # phases 1-15 run at the defaults; 16 sets each for its sub-phase
+        if os.environ.pop(name, None) is not None:
+            log(1, f"unset {name}")
     log(1, f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()} "
            f"max SM clock {clock} MHz; allow_tf32 matmul="
            f"{torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
@@ -591,12 +662,14 @@ def phase_kernel_vs_plain():
 def keep_rate_check(rows=8, length=NS, phase=3):
     """K1's measured keep rate on a length x length grid: with q = 0 every
     weight is 1/Lk, and with v = 1 each output is (#kept/Lk)/(1 − rate);
-    over rows·H·L² draws (31M at phase 3's 982²) it must be 230/256 (the
-    8-bit threshold) within 4σ."""
+    over rows·H·L² draws (31M at phase 3's 982²) it must be
+    1 − round(2ʷ·rate)/2ʷ at the draws' width w (230/256 at the default 8
+    bits) within 4σ."""
     q = torch.zeros(rows, length, MODEL_DIM, device="cuda")
     out = attention.fused_attention(q, q, torch.ones_like(q), None, HEADS, DROPOUT, 99)
     keep = out.double().mean().item() * (1.0 - DROPOUT)
-    p, n = 230 / 256, rows * HEADS * length * length
+    p = 1.0 - attention.drop_threshold(DROPOUT) / 2 ** attention.dropout_bits()
+    n = rows * HEADS * length * length
     sigma = (p * (1 - p) / n) ** 0.5
     log(phase, f"attention_fwd keep rate over {n} draws ({length}x{length}): {keep:.6f} "
                f"(expected {p:.6f}, {abs(keep - p) / sigma:.2f} sigma)")
@@ -743,17 +816,18 @@ def reset_counts():
     laplace.launches = laplace.bwd_launches = 0
 
 
-def train_step_prediction(batch_size, dropout):
+def train_step_prediction(batch_size, dropout, remat=True):
     """Launches per train step, from the dispatch rules: each routed grid
-    launches K1 in the forward and again in remat's re-run, and K2 once in
-    the backward; decoders run on M·K·B rows (in train mode:
-    dropout), encoders on B rows (always deterministic); each of the M
-    experts' likelihoods on a grid of 128 points or more launches K3 and
-    K4 once."""
+    launches K1 in the forward and, with ``remat`` (VAESNE_REMAT unset or
+    not 0), again in remat's re-run, and K2 once in the backward; decoders
+    run on M·K·B rows (in train mode: dropout), encoders on B rows (always
+    deterministic); each of the M experts' likelihoods on a grid of 128
+    points or more launches K3 and K4 once."""
     dec = sum(decoder_launches(d, M * K_TRAIN * batch_size) for d in (0, 1))
     enc = sum(encoder_launches(m, batch_size) for m in (0, 1))
     lik = M * sum(laplace_routes_to_kernel(n) for n in (LP, NS))
-    return (2 * dec if dropout > 0 else 0, 2 * (dec + enc), dec + enc, lik, lik)
+    runs = 2 if remat else 1
+    return (runs * dec if dropout > 0 else 0, runs * (dec + enc), dec + enc, lik, lik)
 
 
 def m_iwae_loss(model, batch, seed):
@@ -851,7 +925,7 @@ def phase_train_card_vs_cpu(seed):
             qz_xs, px_zs, zss = m(batch, K_TRAIN)
         lw = objectives.m_iwae_log_weights(qz_xs, px_zs, zss, batch, m.llik_scalings,
                                            m.pz(device))
-        loss = -distributions.log_mean_exp(lw, dim=0).sum()  # = −m_iwae
+        loss = -distributions.log_mean_exp(lw, axis=0).sum()  # = −m_iwae
         step_grads = torch.autograd.grad(loss, params, retain_graph=True)
         if device == "cuda":
             torch.cuda.synchronize()
@@ -1149,11 +1223,9 @@ def phase_drivers(seed):
     # of (a)'s checkpoint resumed for two more epochs, the profiler running
     # from the end of the first to the end of the second (the same window
     # as (a)'s samples/s: augmentation, the steps, the checkpoint save)
-    from torch.profiler import ProfilerActivity, profile
-
     dir_e = os.path.join(SMOKE_DIR, "e")
     shutil.copytree(flagship_ckpt(dir_a), flagship_ckpt(dir_e))
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True)
+    prof = epoch_profiler()
     window = {}
 
     def on_profiled_epoch(epoch, state, loss):
@@ -1232,7 +1304,7 @@ def capture_attention(rows, lq, lk, store):
         layers.fused_attention = real
 
 
-def eval_gates(label, got, ref_path, failures):
+def eval_gates(label, got, ref_path, failures, phase=11):
     """Per phase bucket: MSE within 5% relative, the bin-averaged coverage
     within 0.02 absolute, the bin-averaged width within 5% relative, of the
     JAX package's results for the same checkpoint and data."""
@@ -1244,7 +1316,7 @@ def eval_gates(label, got, ref_path, failures):
              "rel", 0.05)]
     for name, port, jax_value, kind, tol in rows:
         diff = np.abs(port - jax_value) / (np.abs(jax_value) if kind == "rel" else 1.0)
-        log(11, f"{label} {name} per phase (-10, 0, 10, 20, 30 d): port "
+        log(phase, f"{label} {name} per phase (-10, 0, 10, 20, 30 d): port "
                 f"{np.array2string(port, precision=6)}, JAX "
                 f"{np.array2string(jax_value, precision=6)}, "
                 f"{'relative' if kind == 'rel' else 'absolute'} difference "
@@ -2772,6 +2844,440 @@ def phase_extras(seed):
     return extra, worst
 
 
+# -- the compute switches ------------------------------------------------------------
+
+@contextlib.contextmanager
+def switch(name, value):
+    """The environment with ``name`` set to ``value`` for the block, as it
+    was after it."""
+    prev = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = prev
+
+
+@contextlib.contextmanager
+def kernel_inputs(record):
+    """Record the dtype of q at each K1 and K2 call and of loc at each K3
+    call (sets under "K1", "K2", "K3"), and count the grid_loglik forwards
+    on the card whose grid routes to K3 ("grids")."""
+    fwd, bwd = attention.fused_attention_fwd, attention.fused_attention_bwd
+    k3, grid = distributions.masked_laplace_loglik, distributions.MaskedGridLaplace.grid_loglik
+
+    def fwd_spy(q, *args, **kwargs):
+        record.setdefault("K1", set()).add(q.dtype)
+        return fwd(q, *args, **kwargs)
+
+    def bwd_spy(q, *args, **kwargs):
+        record.setdefault("K2", set()).add(q.dtype)
+        return bwd(q, *args, **kwargs)
+
+    def k3_spy(loc, *args, **kwargs):
+        record.setdefault("K3", set()).add(loc.dtype)
+        return k3(loc, *args, **kwargs)
+
+    def grid_spy(self, x):
+        n = int(np.prod(self.loc.shape[2:]))
+        record["grids"] = record.get("grids", 0) + (self.loc.is_cuda
+                                                    and laplace_routes_to_kernel(n))
+        return grid(self, x)
+
+    attention.fused_attention_fwd, attention.fused_attention_bwd = fwd_spy, bwd_spy
+    distributions.masked_laplace_loglik = k3_spy
+    distributions.MaskedGridLaplace.grid_loglik = grid_spy
+    try:
+        yield
+    finally:
+        attention.fused_attention_fwd, attention.fused_attention_bwd = fwd, bwd
+        distributions.masked_laplace_loglik = k3
+        distributions.MaskedGridLaplace.grid_loglik = grid
+
+
+def phase_bf16_driver(seed, fp32_rate, fp32_busy):
+    """Phase 16(a): VAESNE_BF16=1 train_photospectra.main at the flagship
+    widths for BF16_EPOCHS epochs: every epoch's launches equal phase 10's
+    fp32 prediction (the precision changes no routing), K1 and K2 take bf16
+    q, k, v and K3 bf16 loc, one K3 per routed grid_loglik forward; a copy
+    of the run's epoch-2 checkpoint resumed to epoch 3 equals the run
+    bitwise; the parameters and AdamW's moments are fp32; samples/s of
+    epoch 2 and the busy share of the profiled epoch 3, beside phase 10's
+    fp32 numbers. Returns the run's launches."""
+    root = os.path.join(SMOKE_DIR, "bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+    per_step = train_step_prediction(B_DRIVER, DROPOUT)
+    prof = epoch_profiler()
+    rates, mark, window, record = [], {}, {}, {}
+
+    def on_epoch(epoch, state, loss):
+        now, counts = time.perf_counter(), kernel_counts()
+        steps = state.step - mark["step"]
+        got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+        log(16, f"(a) bf16 epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
+                f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}")
+        assert np.isfinite(loss) and got == tuple(steps * w for w in per_step), (epoch, got)
+        if epoch + 2 == BF16_EPOCHS:  # epoch 2: warm and unprofiled; its checkpoint resumes
+            rates.append(B_DRIVER * steps / (now - mark["t"]))
+            shutil.copytree(flagship_ckpt(dir_a), flagship_ckpt(dir_b))
+            torch.cuda.synchronize()
+            prof.start()
+            window.update(t=time.perf_counter(), step=state.step)
+        elif epoch + 1 == BF16_EPOCHS:
+            window.update(wall_us=(now - window["t"]) * 1e6, steps=state.step - window["step"])
+            prof.stop()
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+
+    with switch("VAESNE_BF16", "1"):
+        reset_counts()
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+        with kernel_inputs(record):
+            state_a, losses_a = train_photospectra.main(
+                driver_args(seed, dir_a, f"train.epochs={BF16_EPOCHS}", "train.save_every=1"),
+                callback=on_epoch)
+        launches = dict(zip(COUNTERS, kernel_counts()))
+        state_b, losses_b = train_photospectra.main(driver_args(
+            seed, dir_b, f"train.epochs={BF16_EPOCHS}", "train.resume=true", "train.save_every=1"))
+    log(16, f"(a) main path (VAESNE_BF16=1 train_photospectra, {BF16_EPOCHS} epochs): launches "
+            f"{launches}; K1 q {record['K1']}, K2 q {record['K2']}, K3 loc {record['K3']}; "
+            f"{record['grids']} routed grid_loglik forwards, {launches['K3']} K3")
+    assert record["K1"] == record["K2"] == record["K3"] == {torch.bfloat16}, record
+    assert record["grids"] == launches["K3"] > 0, (record["grids"], launches)
+    bitwise = losses_b == losses_a and state_b.step == state_a.step and all(
+        torch.equal(x, y) for x, y in zip(state_a.model.parameters(), state_b.model.parameters()))
+    moments = [t for st in state_a.optimizer.state.values() for t in st.values()
+               if torch.is_tensor(t) and t.dim() > 0]
+    fp32 = all(p.dtype == torch.float32 for p in state_a.model.parameters()) and moments and all(
+        t.dtype == torch.float32 for t in moments)
+    log(16, f"(a) epoch 2's checkpoint resumed to {BF16_EPOCHS} against the run: losses "
+            f"{losses_b} vs {losses_a}, bitwise equal {bitwise}; parameters and AdamW moments "
+            f"fp32 {fp32}")
+    assert bitwise and fp32
+    busy = report_profile(prof, window["wall_us"], 1, f"epoch {BF16_EPOCHS} of VAESNE_BF16=1 "
+                          f"train_photospectra.main ({window['steps']} steps)", top=10, phase=16)
+    (rate,) = rates
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(16, f"(a) bf16 driver: epoch 2 {rate:.1f} samples/s (fp32, phase 10: median of epochs "
+            f"2-{DRIVER_EPOCHS} {fp32_rate:.1f}); device busy "
+            f"{busy:.1%} of the profiled epoch (fp32, phase 10: {fp32_busy:.1%}); on {smi}")
+    return launches
+
+
+def phase_remat_off(seed):
+    """Phase 16(b): bench.py's setting, the B = 192 m-IWAE step with
+    VAESNE_REMAT=0, in bf16 and fp32, against remat on from the same
+    weights: launches per step as train_step_prediction(remat=False) (K1 at
+    rate 0.1 once a routed grid, with no re-run; K2 unchanged), the first
+    step's loss and every gradient bitwise remat on's; samples/s (median of
+    steps 2-REMAT_STEPS) and peak memory both ways. Returns the remat-off
+    bf16 step's launches."""
+    batch = to_device(make_batch(B_TRAIN, seed + 10), torch.device("cuda"))
+    per_step = {}
+    for precision in ("bf16", "fp32"):
+        first, numbers = {}, {}
+        for remat in ("1", "0"):
+            with switch("VAESNE_REMAT", remat):
+                model = flagship(seed)
+            stacks = [m for m in model.modules() if isinstance(m, layers.TransformerStack)]
+            assert stacks and all(m.remat == (remat == "1") for m in stacks)
+            want = train_step_prediction(B_TRAIN, DROPOUT, remat=remat == "1")
+            opt = adamw(LR)
+            state = TrainState.create(model, opt, seed=seed)
+            step = make_train_step(model, opt, m_iwae_loss, precision=precision)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(REMAT_STEPS):
+                before = kernel_counts()
+                t0 = time.perf_counter()
+                state, loss = step(state, batch)
+                loss_v = loss.item()
+                times.append(time.perf_counter() - t0)
+                got = tuple(b - a for a, b in zip(before, kernel_counts()))
+                assert np.isfinite(loss_v) and got == want, (precision, remat, i, got, want)
+                if i == 0:
+                    first[remat] = [loss.detach().clone()] + [
+                        p.grad.clone() for p in model.parameters() if p.grad is not None]
+            med = statistics.median(times[1:])
+            numbers[remat] = (B_TRAIN / med, torch.cuda.max_memory_allocated() / 2**20)
+            if remat == "0":
+                per_step[precision] = dict(zip(COUNTERS, got))
+            log(16, f"(b) {precision} step, VAESNE_REMAT={remat}: launches per step "
+                    f"{dict(zip(COUNTERS, got))} (predicted {dict(zip(COUNTERS, want))}); median "
+                    f"of steps 2-{REMAT_STEPS} {med * 1e3:.2f} ms = {B_TRAIN / med:.1f} samples/s; "
+                    f"peak memory {numbers[remat][1]:.0f} MiB")
+            del model, state, step, opt
+            torch.cuda.empty_cache()
+        same = len(first["1"]) == len(first["0"]) > 1 and all(
+            torch.equal(a, b) for a, b in zip(first["1"], first["0"]))
+        log(16, f"(b) {precision}: remat off against on, the first step's loss and "
+                f"{len(first['0']) - 1} gradients bitwise equal {same}; samples/s "
+                f"{numbers['0'][0]:.1f} off, {numbers['1'][0]:.1f} on; peak memory "
+                f"{numbers['0'][1]:.0f} MiB off, {numbers['1'][1]:.0f} MiB on")
+        assert same
+    return per_step["bf16"]
+
+
+def phase_bf16_eval(fp32_events_s):
+    """Phase 16(c): VAESNE_BF16=1 eval_goldstein at K = 100 on the bridged
+    flagship, a warm call and a timed one: K1 takes bf16 q with phase 11's
+    launches per chunk; phase 11's gates against artifacts/eval/ (a miss
+    is reported as a finding, not a failure of this script); events/s
+    beside phase 11's fp32. Returns the K1 launches."""
+    out = os.path.join(SMOKE_DIR, "eval_bf16")
+    shutil.rmtree(out, ignore_errors=True)
+    record, failures = {}, []
+    n_test = len(resolve_dataset(None)["testing_idx"])
+    reset_counts()
+    with switch("VAESNE_BF16", "1"), kernel_inputs(record):
+        eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
+                             f"out={os.path.join(out, 'warm')}"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
+                                       f"out={os.path.join(out, 'timed')}"])
+        wall = time.perf_counter() - t0
+    want = 2 * -(-n_test // SUITE_CHUNK) * suite_chunk_prediction(SUITE_CHUNK)
+    launches = dict(zip(COUNTERS, kernel_counts()))
+    log(16, f"(c) main path (VAESNE_BF16=1 eval_goldstein twice): launches {launches} "
+            f"(K1 predicted {want}); K1 q {record.get('K1')}")
+    assert launches["K1"] == want and record.get("K1") == {torch.bfloat16}, (launches, record)
+    assert all(np.isfinite(metrics[k]).any() for k in ("mm_mse", "mm_coverage_mean"))
+    eval_gates("(c) VAESNE_BF16=1 eval_goldstein K=100", metrics, EVAL_REF["latent"], failures,
+               phase=16)
+    if failures:
+        log(16, f"(c) FINDING: bf16 evaluation misses phase 11's gates {failures} (reported, "
+                f"not a failure of this script: ROADMAP Queue 3)")
+    log(16, f"(c) bf16 eval_goldstein K={K_EVAL} on {n_test} test events: wall {wall:.3f} s, "
+            f"{n_test / wall:.1f} events/s (fp32, phase 11: {fp32_events_s:.1f})")
+    return launches["K1"]
+
+
+def mask_marginals_check(rows=8, length=NS, phase=16):
+    """K1's and K2's dropout masks against the plain mask at the current
+    width: with q = k = 0 every weight is 1/Lk, so with v = 1 K1's output at
+    (row, query, head) is #kept in that query's row over Lk(1 − rate), and
+    with dout = 1 K2's dv at (row, key, head) is #kept in that key's column
+    over Lk(1 − rate); both counts must be the plain mask's."""
+    z = torch.zeros(rows, length, MODEL_DIM, device="cuda")
+    ones = torch.ones_like(z)
+    out, m, l = attention.fused_attention_fwd(z, z, ones, None, HEADS, DROPOUT, 77)
+    _, _, dv = attention.fused_attention_bwd(z, z, ones, None, out, m, l, ones, HEADS, DROPOUT,
+                                             77)
+    keep = attention.dropout_keep(77, rows, HEADS, length, length, DROPOUT, "cuda")
+    scale = length * (1.0 - DROPOUT)
+
+    def counts(t):  # [R, L, E] -> [R, H, L], the first column of each head
+        return (t.reshape(rows, length, HEADS, -1)[..., 0] * scale).round().permute(0, 2, 1)
+
+    same_rows = torch.equal(counts(out), keep.sum(-1).float())
+    same_cols = torch.equal(counts(dv), keep.sum(-2).float())
+    log(phase, f"(d) w = {attention.dropout_bits()}: K1's kept count per query and K2's per key "
+               f"equal the plain mask's: {same_rows}, {same_cols}")
+    assert same_rows and same_cols
+
+
+def phase_dropout_widths():
+    """Phase 16(d): VAESNE_DROPOUT_BITS=16 and 32 at phase 9's R = 768
+    inputs, rate 0.1: K1 and K2 against their plain versions with phase 3's
+    gates in fp32 and bf16, their times beside phase 9's at 8 bits, the
+    keep rate 1 − round(2ʷ·0.1)/2ʷ within 4σ and the forward's and
+    backward's masks the plain mask. Returns {(kernel, dtype, w): ms}."""
+    rows, chunk, dseed = M * K_TRAIN * B_TRAIN, 64, 5
+    q, k, v, mask = attention_inputs(rows, NS, NS, True, seed=8, full_row=True)
+    dout = randn_like(q, 42)
+    slices = chunk_slices(rows, chunk)
+    times = {}
+    for w in (16, 32):
+        with switch("VAESNE_DROPOUT_BITS", str(w)):
+            want_out = torch.cat([attention.attention_reference(
+                q[s], k[s], v[s], mask[s], HEADS, DROPOUT, chunk_seed(dseed, s)) for s in slices])
+            want_grads = [torch.cat(g) for g in zip(*[attention.attention_backward_reference(
+                q[s], k[s], v[s], mask[s], dout[s], HEADS, DROPOUT, chunk_seed(dseed, s))
+                for s in slices])]
+            for dtype in (torch.float32, torch.bfloat16):
+                qd, kd, vd, dd = (t.to(dtype) for t in (q, k, v, dout))
+                out, m, l = attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, DROPOUT, dseed)
+                grads = attention.fused_attention_bwd(qd, kd, vd, mask, out, m, l, dd, HEADS,
+                                                      DROPOUT, dseed)
+                torch.cuda.synchronize()
+                rel = [_rel(out, want_out)] + [_rel(g, t) for g, t in zip(grads, want_grads)]
+                err_f = (out.float() - want_out).abs().max().item()
+                times[("fwd", dtype, w)] = time_ms(lambda: attention.fused_attention_fwd(
+                    qd, kd, vd, mask, HEADS, DROPOUT, dseed))
+                times[("bwd", dtype, w)] = time_ms(lambda: attention.fused_attention_bwd(
+                    qd, kd, vd, mask, out, m, l, dd, HEADS, DROPOUT, dseed))
+                name = str(dtype).split(".")[-1]
+                log(16, f"(d) VAESNE_DROPOUT_BITS={w} R={rows} 982x982 {name} rate 0.1 against "
+                        f"the plain versions: K1 max-abs {err_f:.3e} (rel {rel[0]:.2e}); K2 dq, "
+                        f"dk, dv rel " + ", ".join(f"{e:.2e}" for e in rel[1:])
+                        + f"; K1 {times[('fwd', dtype, w)]:.3f} ms, K2 "
+                        f"{times[('bwd', dtype, w)]:.3f} ms")
+                assert all(np.isfinite(e) for e in rel), (w, name, rel)
+                if dtype == torch.float32:
+                    assert err_f <= 1e-5 and all(e <= 1e-4 for e in rel[1:]), (w, err_f, rel)
+                else:
+                    assert all(e <= 2e-2 for e in rel), (w, rel)
+                del out, m, l, grads, qd, kd, vd, dd
+            keep_rate_check(phase=16)
+            mask_marginals_check()
+            del want_out, want_grads
+            torch.cuda.empty_cache()
+    del q, k, v, mask, dout
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_queue3():
+    """Phase 16(e): the port's K2 in bf16 (after K1 in bf16, whose output
+    feeds the row term) and in fp32 on Queue 3's near-uniform input, against
+    the plain version in fp32 on the same bf16-grid values, beside the JAX
+    kernel's bf16 error on that input (committed, from the CPU). There dq is
+    a small difference of large terms: the keys share one large mean, and
+    dq = Σ p(dp − D)(k − k̄) + k̄·Σ p(dp − D), whose second sum is 0 in exact
+    arithmetic, so round-off in D = Σ dout·o reaches dq multiplied by |k̄|.
+    The fp32 kernel's dk and dv hold phase 3's gate; dq in fp32 and bf16 is
+    printed, not gated. Returns {rate: [dq, dk, dv] relative bf16 errors}."""
+    with open(QUEUE3) as f:
+        committed = json.load(f)["jax_dq_dk_dv"]
+    q, k, v, dout, mask = (torch.from_numpy(a).cuda() for a in near_uniform_attention_inputs())
+    res = {}
+    for rate, seed in (("0", None), ("0.1", 1302)):
+        r = float(rate)
+        want = attention.attention_backward_reference(q, k, v, mask, dout, HEADS, r, seed)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, dd = (t.to(dtype) for t in (q, k, v, dout))
+            out, m, l = attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, r, seed)
+            grads = attention.fused_attention_bwd(qd, kd, vd, mask, out, m, l, dd, HEADS, r, seed)
+            torch.cuda.synchronize()
+            errs[dtype] = [_rel(g, t) for g, t in zip(grads, want)]
+        log(16, f"(e) Queue 3 input [{QUEUE3_ROWS}, {CONTEXT}, {MODEL_DIM}] rate {rate}: the "
+                f"port's K2 dq, dk, dv relative to the fp32 plain version: bf16 "
+                + ", ".join(f"{e:.3e}" for e in errs[torch.bfloat16]) + "; fp32 "
+                + ", ".join(f"{e:.3e}" for e in errs[torch.float32]) + "; the JAX kernel in "
+                "bf16 against its fp32 run (interpret mode, CPU): "
+                + ", ".join(f"{e:.3e}" for e in committed[rate]) + " (bf16 gate 2e-2)")
+        assert all(np.isfinite(e) for e in errs[torch.bfloat16] + errs[torch.float32]), errs
+        assert all(e <= 1e-4 for e in errs[torch.float32][1:]), errs
+        res[rate] = errs[torch.bfloat16]
+    return res
+
+
+def vae_part_launches(vae, n, rows, part):
+    """K1 launches of one encode or decode of ``vae`` over ``rows`` rows of
+    an n-point grid at its own widths: per layer a self-attention and a
+    cross-attention, as stack_launches counts them (a spectrum's context
+    carries the phase token)."""
+    spectra = isinstance(vae, SpectraVAE)
+    tower = vae.enc if part == "encode" else vae.dec
+    stack = next(m for m in tower.modules() if isinstance(m, layers.TransformerStack))
+    heads = stack.block_0.self_attn.num_heads
+    lq, lc = ((2 * vae.latent_len, n + spectra) if part == "encode"
+              else (n, vae.latent_len + spectra))
+    return stack.num_layers * (int(routes_to_kernel(rows, heads, lq, lq))
+                               + int(routes_to_kernel(rows, heads, lq, lc)))
+
+
+def phase_bridged_checkpoints():
+    """Phase 16(f): the four newly bridged checkpoints through
+    InferenceServer.from_checkpoint on the card: each modality's embed and
+    posterior-mean decode of REFERENCE_EVENTS events within 1e-4 of max
+    |JAX| (jax_reference.npz beside each), K1's launches as the dispatch
+    rule predicts (the 982x982 spectra decoder routes at any R). Returns
+    the K1 launches."""
+    from vaesne_tpu_torch import data as tdata
+
+    total = 0
+    for name, (kind, builder) in BRIDGED_VAES.items():
+        path = os.path.join("artifacts", "ckpt_torch", name)
+        ref = np.load(os.path.join(path, "jax_reference.npz"))
+        maker = tdata.make_goldstein_like if kind == "goldstein" else tdata.make_ztf_like
+        n_events = REFERENCE_EVENTS["n"]
+        x = getattr(tdata, builder)(maker(**REFERENCE_EVENTS), idx=np.arange(n_events),
+                                    device="cpu")
+        server = InferenceServer.from_checkpoint(path, buckets=(n_events,))
+        multimodal = builder == "multimodal_tuple"
+        for m, xm in enumerate(x if multimodal else (x,)):
+            vae = server.model.vaes[m] if multimodal else server.model
+            n = xm[0].shape[-1]
+            want = sum(vae_part_launches(vae, n, n_events, part) for part in ("encode", "decode"))
+            assert not isinstance(vae, SpectraVAE) or vae_part_launches(
+                vae, n, 1, "decode") == vae.dec.blocks.num_layers, name
+            before = attention.launches
+            z = server.embed(tuple(a.numpy() for a in xm), modality=m)
+            with torch.inference_mode():
+                loc = vae.decode(z[None], to_device(xm, torch.device("cuda"))).loc[0]
+            torch.cuda.synchronize()
+            got = attention.launches - before
+            errs = [np.abs(t.cpu().numpy() - ref[f"{key}_{m}"]).max()
+                    / np.abs(ref[f"{key}_{m}"]).max() for key, t in (("embed", z), ("decode", loc))]
+            log(16, f"(f) {name} modality {m} ({vae.modality_name}, {n} points): embed and "
+                    f"posterior-mean decode within {errs[0]:.3e}, {errs[1]:.3e} of max |JAX| "
+                    f"(gate 1e-4); K1 launches {got} (predicted {want})")
+            assert all(e <= 1e-4 for e in errs) and got == want, (name, m, errs, got, want)
+            total += got
+    return total
+
+
+def phase_switches(seed, fp32_rate=float("nan"), fp32_busy=float("nan"),
+                   fp32_events_s=float("nan")):
+    """Phase 16: the JAX package's compute switches, each set for its own
+    sub-phase and restored after it. Returns the keys it adds to the
+    kernels line."""
+    t_phase = time.perf_counter()
+    spent = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        spent[label] = time.perf_counter() - t0
+        return out
+
+    drivers = timed("a", phase_bf16_driver, seed, fp32_rate, fp32_busy)
+    remat0 = timed("b", phase_remat_off, seed)
+    eval_k1 = timed("c", phase_bf16_eval, fp32_events_s)
+    widths = timed("d", phase_dropout_widths)
+    queue3 = timed("e", phase_queue3)
+    bridged = timed("f", phase_bridged_checkpoints)
+    assert not any(name in os.environ for name in SWITCHES)
+    log(16, f"phase 16 took {time.perf_counter() - t_phase:.1f} s: "
+            + ", ".join(f"({k}) {v:.1f} s" for k, v in spent.items()))
+    f32, b16 = torch.float32, torch.bfloat16
+    by_width = {kind: {f"ms{d}_w{w}": widths[(kind, dt, w)] for w in (16, 32)
+                       for dt, d in ((f32, ""), (b16, "_bf16"))} for kind in ("fwd", "bwd")}
+    return {
+        "attention_fwd": {"launches_drivers_bf16": drivers["K1"] - drivers["K1 rate>0"],
+                          "launches_step_remat0": remat0["K1"] - remat0["K1 rate>0"],
+                          "launches_eval_bf16": eval_k1, "launches_bridged": bridged},
+        "attention_fwd_dropout": {"launches_drivers_bf16": drivers["K1 rate>0"],
+                                  "launches_step_remat0": remat0["K1 rate>0"], **by_width["fwd"]},
+        "attention_bwd": {"launches_drivers_bf16": drivers["K2"],
+                          "launches_step_remat0": remat0["K2"], **by_width["bwd"],
+                          "queue3_dq_rel_bf16": queue3["0.1"][0],
+                          "queue3_dq_rel_bf16_rate0": queue3["0"][0]},
+        "laplace_fwd": {"launches_drivers_bf16": drivers["K3"],
+                        "launches_step_remat0": remat0["K3"]},
+        "laplace_bwd": {"launches_drivers_bf16": drivers["K4"],
+                        "launches_step_remat0": remat0["K4"]},
+    }
+
+
+def epoch_profiler():
+    """A profiler for the busy share of a driver's epoch: device activity
+    alone (an epoch's host ops would cost the profiler minutes to gather,
+    and slow the host it measures), started and stopped by the caller."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA], acc_events=True)
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -2900,8 +3406,10 @@ def main(argv=None):
     extras_extra, extras_errs = phase_extras(args.seed)
     for name, err in extras_errs.items():
         errs[name] = max(errs[name], err)
+    torch.cuda.empty_cache()
+    switches_extra = phase_switches(args.seed, rate, busy, ev["events_s"])
     ms, bound_ms, by, lib = res[(800, torch.float32)]
-    ms16, _, _, lib16 = res[(800, torch.bfloat16)]
+    ms16, bound16, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], t["err_f"])
     errs["attention_bwd"] = max(errs["attention_bwd"], t["err_b"])
@@ -2951,7 +3459,16 @@ def main(argv=None):
     # 0.1, K2) (launches_extras), and on its captured [1, 982, 32] input the
     # fp32 times, bounds, plain versions and SDPA (*_extras); attention_fwd
     # also carries RelativeMultiHeadAttention's time per call and device time
-    # at [8, 982, 32] (relative_attention_ms, _device_ms). The Laplace
+    # at [8, 982, 32] (relative_attention_ms, _device_ms); and phase 16's:
+    # launches of VAESNE_BF16=1 train_photospectra (launches_drivers_bf16;
+    # K1 rate 0: its deterministic grids), of one bf16 B = 192 step at
+    # VAESNE_REMAT=0 (launches_step_remat0), of bf16 eval_goldstein and the
+    # four bridged checkpoints (attention_fwd: launches_eval_bf16,
+    # launches_bridged), K1 at rate 0.1 and K2 at R = 768 with 16- and
+    # 32-bit dropout draws (ms_w16, ms_w32, ms_bf16_w16, ms_bf16_w32), the
+    # bf16 K2's dq error on Queue 3's input (queue3_dq_rel_bf16 at rate
+    # 0.1, _rate0); the K1 rows and K2 also carry their bf16 bound at the
+    # ms_bf16 shape (bound_ms_bf16). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -2972,12 +3489,16 @@ def main(argv=None):
                    for name, c in column.items()}
     multi_extra["attention_fwd"] = {f"launches_dp_serving_rank{r}": sum(
         launches[r] for launches in multi["serving"]) for r in (0, 1)}
+    bf16_bounds = {"attention_fwd": bound16, "attention_fwd_dropout": b16["b_f"][0],
+                   "attention_bwd": b16["b_b"][0]}
     print(json.dumps({"kernels": [
         dict(zip(keys, r[:8]), bound_ms=r[8][0], bound_by=r[8][1], library_ms=r[9],
              ms_bf16=r[10], library_ms_bf16=r[11], launches_drivers=r[12],
              **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
              **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}),
-             **multi_extra.get(r[0], {}), **extras_extra.get(r[0], {}))
+             **multi_extra.get(r[0], {}), **extras_extra.get(r[0], {}),
+             **switches_extra.get(r[0], {}),
+             **({"bound_ms_bf16": bf16_bounds[r[0]]} if r[0] in bf16_bounds else {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,3 +89,25 @@ def test_m_iwae_gradients_match_jax(pair, fixed_noise, pallas):
     for path, want in flat_j.items():
         np.testing.assert_allclose(flat_t[path], np.asarray(want), rtol=0, atol=1e-4 * scale,
                                    err_msg=jax.tree_util.keystr(path))
+
+
+def test_elbo_debug_prints_the_terms_as_jax(pair, fixed_noise, pallas, capfd):
+    """``elbo(debug=True)`` prints ``kl: <mean KL>, llk: <−mean log-lik>``
+    as the JAX package's ``jax.debug.print`` does, with the same values
+    (rtol 1e-5), and returns what ``debug=False`` returns."""
+    jm, variables, tm, batch = pair
+    params = {"params": variables["params"]["vaes_1"]}
+    jobj.elbo(jm.vaes[1], params, jx(batch)[1], K, key=jax.random.PRNGKey(1),
+              deterministic=True, debug=True)
+    jax.effects_barrier()
+    want = capfd.readouterr().out
+    got = tobj.elbo(tm.vaes[1], tx(batch)[1], K, seed=1, debug=True)
+    printed = capfd.readouterr().out
+    assert torch.equal(got, tobj.elbo(tm.vaes[1], tx(batch)[1], K, seed=1))
+
+    def terms(text):
+        (line,) = [s for s in text.splitlines() if s.startswith("kl: ")]
+        kl, llk = line[len("kl: "):].split(", llk: ")
+        return float(kl), float(llk)
+
+    np.testing.assert_allclose(terms(printed), terms(want), rtol=1e-5)

@@ -147,13 +147,12 @@ def test_no_forbidden_import_in_source():
 # Names of the JAX package with no port counterpart, and why: the jax.Array
 # alias; the Pallas switches and tiles and the TPU's packed [B, E, L] head
 # layout; the JAX sharding specs, placements and custom_partitioning helpers
-# (a rank holds its own slice, ops/partition.py); the compute dtype of
-# VAESNE_BF16 (the port takes precision="bf16", an autocast); flax's init
-# (the port's is utils.init_params).
+# (a rank holds its own slice, ops/partition.py); flax's init (the port's
+# is utils.init_params).
 JAX_ONLY = {
     "Array", "use_pallas", "pallas_interpret", "pack_heads", "unpack_heads", "ROW_TILE",
     "axes_on_dim", "batch_axes", "batch_only", "n_shards", "replicated", "shard_index",
-    "shard_kernels", "spec_entry", "batch_sharding", "compute_dtype", "init_model",
+    "shard_kernels", "spec_entry", "batch_sharding", "init_model",
 }
 
 

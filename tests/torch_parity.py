@@ -143,6 +143,45 @@ INFO_NCE_BATCH = 32
 # sits beside the JAX checkpoint (copied beside the bridged one)
 ABSDIFF_FILE = "jax_absdiff.npy"
 NORMALIZING_FILE = "goldstein_normalizing.json"
+# beside a bridged light-curve or spectrum VAE or MMVAE (written on request,
+# ``reference=True``): the JAX package's outputs for REFERENCE_EVENTS events
+# of the data kind's synthetic set, per modality m: ``embed_m``, the
+# posterior mean encode(x_m) [B, latent_len, latent_dim], and ``decode_m``,
+# the posterior-mean decode decode(embed_m[None], x_m).loc[0], dropout off
+VAE_REFERENCE_FILE = "jax_reference.npz"
+REFERENCE_EVENTS = dict(n=4, seed=1)
+
+
+def reference_events(kind, builder, lib="jax"):
+    """The events of a VAE checkpoint's reference file, as the JAX
+    package's (numpy) or the port's (CPU tensors) data tuple."""
+    import vaesne_tpu.data as jdata
+    import vaesne_tpu_torch.data as tdata
+
+    data = (jdata if lib == "jax" else tdata)
+    maker = data.make_goldstein_like if kind == "goldstein" else data.make_ztf_like
+    events = maker(**REFERENCE_EVENTS)
+    idx = np.arange(REFERENCE_EVENTS["n"])
+    if lib == "jax":
+        return getattr(data, builder)(events, idx=idx)
+    return getattr(data, builder)(events, idx=idx, device="cpu")
+
+
+def write_vae_reference(jmodel, params, kind, builder, out_dir):
+    """``VAE_REFERENCE_FILE`` for the JAX VAE or MMVAE ``jmodel``."""
+    x = reference_events(kind, builder)
+    variables = {"params": params}
+    multimodal = builder == "multimodal_tuple"
+    out = {}
+    for m, xm in enumerate(x if multimodal else (x,)):
+        def vae(module, m=m):
+            return module.vaes[m] if multimodal else module
+
+        z = jmodel.apply(variables, xm, method=lambda mod, a: vae(mod).encode(a))
+        loc = jmodel.apply(variables, z[None], xm,
+                           method=lambda mod, zs, a: vae(mod).decode(zs, a).loc)[0]
+        out[f"embed_{m}"], out[f"decode_{m}"] = np.asarray(z), np.asarray(loc)
+    np.savez(os.path.join(out_dir, VAE_REFERENCE_FILE), **out)
 
 
 def regression_case(path):
@@ -218,7 +257,8 @@ def reference_images(cfg, n=REFERENCE_IMAGES["n"], seed=REFERENCE_IMAGES["seed"]
     return jdata.make_images(n=n, img_size=cfg.img_size, channels=cfg.in_channels, seed=seed)
 
 
-def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConfig"):
+def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConfig",
+                           reference=False):
     """Bridge the JAX package's checkpoint at ``jax_dir`` (its Orbax
     ``state/`` and ``config.json``) into a port checkpoint at ``out_dir``:
     ``config.json`` tagged with its config class and a ``state.pt`` of the
@@ -229,7 +269,9 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     state is restored into an abstract template, so nothing is compiled.
     For an image VAE it also writes ``REFERENCE_FILE``: the JAX package's
     posterior-mean reconstruction of ``reference_images``, [N, C, H, W];
-    for a contrastive model ``PROJECTIONS_FILE``; for a regression head
+    for a contrastive model ``PROJECTIONS_FILE``; for a light-curve or
+    spectrum VAE or MMVAE, with ``reference``, ``VAE_REFERENCE_FILE``; for a
+    regression head
     (a directory named ``goldstein_{modality}2param_{backbone}``) the JAX
     eval_regression's ``ABSDIFF_FILE``, and a copy of the normalizing JSON
     beside ``jax_dir`` into the parent of ``out_dir``."""
@@ -271,6 +313,8 @@ def export_port_checkpoint(jax_dir, out_dir, config_class="PhotoSpectraMMVAEConf
     tck.save_params(out_dir, model, config)
     if name == "ContrastiveConfig":
         write_contrastive_reference(jmodel, params, out_dir, jc.temperature)
+    elif reference and kind != "image":
+        write_vae_reference(jmodel, params, kind, builder, out_dir)
     if kind == "image":
         x = jdata.image_tuple(reference_images(jc))
         variables = {"params": params}
@@ -307,5 +351,5 @@ def _export_regression(jax_dir, out_dir, jc, tc, config):
 
 if __name__ == "__main__":
     # PYTHONPATH=. python tests/torch_parity.py <JAX checkpoint> <port checkpoint> [class]
-    export_port_checkpoint(*sys.argv[1:])
+    export_port_checkpoint(*sys.argv[1:], reference=True)
     print(f"wrote {os.path.join(sys.argv[2], 'state.pt')}")

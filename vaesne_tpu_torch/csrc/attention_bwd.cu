@@ -69,7 +69,7 @@ constexpr int DSS = KS + 8;         // row stride of the ds tile (floats): 8 ban
 // p' (keep dp - D') with p' = p / (1 - rate) and D' = D (1 - rate):
 // drop_scale is folded into 1/l and D once per query. A query past Lq gets
 // m = 0, 1/l = 0, D = 0, zero q and do: p = 0 and ds = 0.
-template <typename T, int DH, bool DROP>
+template <typename T, int DH, int DROP>
 struct QueryStager {
   static constexpr int CH = Head<DH>::CHUNK, LO = CH * Head<DH>::STRIDE;
   struct Smem {
@@ -124,7 +124,7 @@ struct QueryStager {
 // [warp][8 NC][32 lanes] fp32 (kept here rather than in registers so that
 // the fp32 kernel fits 128 registers a thread without spilling), and the
 // chunk's dq parts.
-template <typename T, int DH, bool DROP>
+template <typename T, int DH, int DROP>
 struct BwdSmem {
   using Stager = QueryStager<T, DH, DROP>;
   static constexpr int STAGE = (sizeof(typename Stager::Smem) + 15) / 16 * 16;
@@ -137,7 +137,7 @@ struct BwdSmem {
   static constexpr int BYTES = STAGE + DS + K + GKV + DQP;
 };
 
-template <typename T, int DH, bool DROP>
+template <typename T, int DH, int DROP>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS<DH>)
 attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -194,7 +194,6 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int n_chunks = (lq + CH - 1) / CH;
   const int ks_len = 16 * nwarps;  // keys per super-tile
-  const uint32_t thr24 = threshold << 24;
   const float scale = rsqrtf(static_cast<float>(DH));
   for (int ks0 = 0; ks0 < lk; ks0 += ks_len) {
     stage_ahead(sg, n_chunks);
@@ -268,7 +267,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const float p = fast_exp2(fmaf(sa[i], q_scale, kbias[key]) - (col1 ? m.y : m.x)) *
                           (col1 ? il.y : il.x);
           float pd = p, d = dp[i];
-          if (DROP && !keep_weight(hr[col1], hcol[key], thr24)) pd = d = 0.f;
+          if (DROP && !keep_weight<DROP>(hr[col1], hcol[key], threshold)) pd = d = 0.f;
           ds[i] = p * (d - (col1 ? dl.y : dl.x));
           pk[i] = pd;
           dsm[(i0 + col1) * DSS + warp * 16 + g + 8 * key] = ds[i];
@@ -370,14 +369,18 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* o,
            const void* dout, const float* row_max, const float* row_sum, float* delta,
            float* dq_acc, void* dq, void* dk, void* dv, long long rows, int lq, int lk,
-           int num_heads, uint32_t seed, int threshold, float drop_scale, cudaStream_t stream) {
+           int num_heads, uint32_t seed, uint32_t threshold, int full_hash, float drop_scale,
+           cudaStream_t stream) {
   const int warps = max(Head<DH>::MIN_THREADS / 32, min(MAX_WARPS, (lk + 15) / 16));
   const long long blocks = rows * num_heads;
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float q_scale = LOG2E / sqrtf(static_cast<float>(DH));
-  const bool drop = threshold > 0;
-  auto kernel = drop ? attention_bwd_kernel<T, DH, true> : attention_bwd_kernel<T, DH, false>;
-  const int bytes = drop ? BwdSmem<T, DH, true>::BYTES : BwdSmem<T, DH, false>::BYTES;
+  const int mode = drop_mode(threshold, full_hash);
+  auto kernel = mode == DROP_FULL    ? attention_bwd_kernel<T, DH, DROP_FULL>
+                : mode == DROP_SHORT ? attention_bwd_kernel<T, DH, DROP_SHORT>
+                                     : attention_bwd_kernel<T, DH, DROP_OFF>;
+  const int bytes = mode != DROP_OFF ? BwdSmem<T, DH, DROP_SHORT>::BYTES
+                                     : BwdSmem<T, DH, DROP_OFF>::BYTES;
   const cudaError_t set =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -385,7 +388,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, const 
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<const T*>(o), static_cast<const T*>(dout),
       row_max, row_sum, delta, dq_acc, static_cast<T*>(dq), static_cast<T*>(dk),
-      static_cast<T*>(dv), lq, lk, num_heads, q_scale, seed, static_cast<uint32_t>(threshold),
+      static_cast<T*>(dv), lq, lk, num_heads, q_scale, seed, threshold,
       dropout_tile(lq), drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -394,11 +397,11 @@ template <typename T>
 int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const void* mask,
                 const void* o, const void* dout, const float* row_max, const float* row_sum,
                 float* delta, float* dq_acc, void* dq, void* dk, void* dv, long long rows,
-                int lq, int lk, int num_heads, uint32_t seed, int threshold, float drop_scale,
-                cudaStream_t stream) {
+                int lq, int lk, int num_heads, uint32_t seed, uint32_t threshold, int full_hash,
+                float drop_scale, cudaStream_t stream) {
 #define VAESNE_LAUNCH(DH)                                                                   \
   launch<T, DH>(q, k, v, mask, o, dout, row_max, row_sum, delta, dq_acc, dq, dk, dv, rows, \
-                lq, lk, num_heads, seed, threshold, drop_scale, stream)
+                lq, lk, num_heads, seed, threshold, full_hash, drop_scale, stream)
   switch (head_dim) {
     case 4: return VAESNE_LAUNCH(4);
     case 8: return VAESNE_LAUNCH(8);
@@ -414,7 +417,8 @@ int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients);
 // row_max, row_sum, delta and the dq accumulator dq_acc are fp32, [R, H, Lq]
 // and [R, H, Lq, Dh] (delta and dq_acc are scratch the kernel overwrites).
-// threshold 0 turns the dropout mask off; drop_scale is 1/(1 - rate). Every
+// threshold is the keep threshold thr32 of attention_common.cuh (0 turns the
+// dropout mask off), full_hash 1 at width 32; drop_scale is 1/(1 - rate). Every
 // pointer is 16-byte aligned. Returns the cudaError_t of the launch (0 on
 // success), asynchronous on `stream`.
 extern "C" int vaesne_attention_bwd(const void* q, const void* k, const void* v,
@@ -422,8 +426,8 @@ extern "C" int vaesne_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* row_max, const void* row_sum, void* delta,
                                     void* dq_acc, void* dq, void* dk, void* dv, long long rows,
                                     int lq, int lk, int num_heads, int head_dim, int dtype,
-                                    uint32_t seed, int threshold, float drop_scale,
-                                    void* stream) {
+                                    uint32_t seed, uint32_t threshold, int full_hash,
+                                    float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(row_max);
   const float* l = static_cast<const float*>(row_sum);
@@ -431,10 +435,10 @@ extern "C" int vaesne_attention_bwd(const void* q, const void* k, const void* v,
   float* acc = static_cast<float*>(dq_acc);
   if (dtype == 0)
     return dispatch_dh<float>(head_dim, q, k, v, mask, o, dout, m, l, d, acc, dq, dk, dv, rows,
-                              lq, lk, num_heads, seed, threshold, drop_scale, s);
+                              lq, lk, num_heads, seed, threshold, full_hash, drop_scale, s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(head_dim, q, k, v, mask, o, dout, m, l, d, acc, dq, dk,
                                       dv, rows, lq, lk, num_heads, seed, threshold,
-                                      drop_scale, s);
+                                      full_hash, drop_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

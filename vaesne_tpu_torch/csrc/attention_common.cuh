@@ -7,19 +7,21 @@
 // backward regenerates the forward's mask without storing it. It is the
 // JAX package's own counter hash (vaesne_tpu/ops/attention.py::_hash_bits,
 // the stream its kernels use in interpret mode) with the single-draw
-// seeding of _dropout_mask and its default 8-bit width:
+// seeding of _dropout_mask and its width w of VAESNE_DROPOUT_BITS (8, the
+// default, 16 or 32):
 //   qt         = min(1024, max(128, Lq rounded up to 128))
 //   block_seed = seed + (r*H + h)*1024 + (q / qt)*(qt / 128)     (uint32)
 //   x          = block_seed*C_SEED ^ (q % qt + 1)*C_ROW ^ (j + 1)*C_COL
 //   x          = murmur3-style finaliser of x
-//   keep      <=> (x >> 24) >= round(256 * rate)
-// So the keep probability is a multiple of 1/256 (230/256 at rate 0.1),
-// while the kept weights are rescaled by 1/(1 - rate) exactly, as in the
-// JAX package. The finaliser's first step distributes over the xor,
+//   keep      <=> (x >> (32 - w)) >= round(2^w * rate)
+//             <=> x >= round(2^w * rate) << (32 - w)      (the kernels' thr32)
+// So the keep probability is a multiple of 1/2^w (230/256 at rate 0.1 and
+// w = 8), while the kept weights are rescaled by 1/(1 - rate) exactly, as in
+// the JAX package. The finaliser's first step distributes over the xor,
 // (a ^ b) ^ ((a ^ b) >> 16) = (a ^ a >> 16) ^ (b ^ b >> 16), so it is applied
 // to the row part once per query and to the column part once per key; what
 // is left per (query, key, head) is 6 integer operations (xor, multiply,
-// shift, xor, multiply, compare).
+// shift, xor, multiply, compare), 8 at w = 32 (keep_weight).
 //
 // Tiles. A warp owns 16 rows (queries, or keys in the backward) of one
 // head. Lane (g = lane / 4, t = lane % 4) holds, of any 16 x 8 block, the
@@ -105,15 +107,26 @@ __device__ __forceinline__ uint32_t hash_col(int j) {
   return x ^ (x >> 16);
 }
 
-// thr24 = threshold << 24: keep <=> (x >> 24) >= threshold <=> x >= thr24.
-// The finaliser's last step, x ^= x >> 16, changes no bit of x >> 24 and is
-// left out.
-__device__ __forceinline__ bool keep_weight(uint32_t row, uint32_t col, uint32_t thr24) {
+// Kernels take the dropout width as a template argument: DROP_OFF (rate 0),
+// DROP_SHORT (w = 8 or 16) or DROP_FULL (w = 32).
+constexpr int DROP_OFF = 0, DROP_SHORT = 1, DROP_FULL = 2;
+
+// keep <=> x >= thr32, thr32 = round(2^w rate) << (32 - w). The finaliser's
+// last step, x ^= x >> 16, changes no bit of x >> 16, so at w <= 16
+// (DROP_SHORT) it is left out; w = 32 (DROP_FULL) compares every bit.
+template <int DROP>
+__device__ __forceinline__ bool keep_weight(uint32_t row, uint32_t col, uint32_t thr32) {
   uint32_t x = row ^ col;
   x *= C_MIX1;
   x ^= x >> 15;
   x *= C_MIX2;
-  return x >= thr24;
+  if (DROP == DROP_FULL) x ^= x >> 16;
+  return x >= thr32;
+}
+
+// The kernel's dropout mode for a launch: threshold 0 is the rate-0 kernel.
+inline int drop_mode(uint32_t thr32, int full_hash) {
+  return thr32 == 0u ? DROP_OFF : (full_hash ? DROP_FULL : DROP_SHORT);
 }
 
 // 2^x on the SFU (ex2.approx, ~2 ulp; subnormal results flush to 0).

@@ -109,7 +109,7 @@ struct KeyStager {
   }
 };
 
-template <typename T, int DH, bool DROP>
+template <typename T, int DH, int DROP>
 __global__ void __launch_bounds__(MAX_WARPS * 32, MIN_BLOCKS<DH>)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
@@ -157,7 +157,6 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     hrow0 = hash_row(seed, r, h, num_heads, q0 + g, drop_tile);
     hrow1 = hash_row(seed, r, h, num_heads, q0 + g + 8, drop_tile);
   }
-  const uint32_t thr24 = threshold << 24;
 
   // One chunk of keys: FULL (all CH keys real) runs every tile without a
   // branch; the last, partial chunk skips the tiles past Lk.
@@ -204,10 +203,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (DROP) {
           const int j = j0 + kt * 8 + 2 * t;
           const uint32_t ca = hash_col(j), cb = hash_col(j + 1);
-          if (!keep_weight(hrow0, ca, thr24)) p[0] = 0.f;
-          if (!keep_weight(hrow0, cb, thr24)) p[1] = 0.f;
-          if (!keep_weight(hrow1, ca, thr24)) p[2] = 0.f;
-          if (!keep_weight(hrow1, cb, thr24)) p[3] = 0.f;
+          if (!keep_weight<DROP>(hrow0, ca, threshold)) p[0] = 0.f;
+          if (!keep_weight<DROP>(hrow0, cb, threshold)) p[1] = 0.f;
+          if (!keep_weight<DROP>(hrow1, ca, threshold)) p[2] = 0.f;
+          if (!keep_weight<DROP>(hrow1, cb, threshold)) p[3] = 0.f;
         }
         const typename MM::A pa = MM::make_a(p);
         const T* v0 = vst + (kt * 8 + 2 * t) * S + g;
@@ -259,30 +258,32 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
            float* row_max, float* row_sum, long long rows, int lq, int lk, int num_heads,
-           uint32_t seed, int threshold, float out_scale, cudaStream_t stream) {
+           uint32_t seed, uint32_t threshold, int full_hash, float out_scale,
+           cudaStream_t stream) {
   const int warps = max(Head<DH>::MIN_THREADS / 32, min(MAX_WARPS, (lq + 15) / 16));
   const int n_tiles = (lq + 16 * warps - 1) / (16 * warps);
   const long long blocks = rows * num_heads * n_tiles;
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   const float q_scale = LOG2E / sqrtf(static_cast<float>(DH));
-  auto kernel = threshold > 0 ? attention_fwd_kernel<T, DH, true>
-                              : attention_fwd_kernel<T, DH, false>;
+  const int mode = drop_mode(threshold, full_hash);
+  auto kernel = mode == DROP_FULL    ? attention_fwd_kernel<T, DH, DROP_FULL>
+                : mode == DROP_SHORT ? attention_fwd_kernel<T, DH, DROP_SHORT>
+                                     : attention_fwd_kernel<T, DH, DROP_OFF>;
   kernel<<<static_cast<unsigned>(blocks), 32 * warps, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), row_max, row_sum, lq, lk,
-      num_heads, n_tiles, q_scale, seed, static_cast<uint32_t>(threshold),
-      dropout_tile(lq), out_scale);
+      num_heads, n_tiles, q_scale, seed, threshold, dropout_tile(lq), out_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const void* mask,
                 void* out, float* row_max, float* row_sum, long long rows, int lq, int lk,
-                int num_heads, uint32_t seed, int threshold, float out_scale,
-                cudaStream_t stream) {
+                int num_heads, uint32_t seed, uint32_t threshold, int full_hash,
+                float out_scale, cudaStream_t stream) {
 #define VAESNE_LAUNCH(DH)                                                                   \
   launch<T, DH>(q, k, v, mask, out, row_max, row_sum, rows, lq, lk, num_heads, seed,      \
-                threshold, out_scale, stream)
+                threshold, full_hash, out_scale, stream)
   switch (head_dim) {
     case 4: return VAESNE_LAUNCH(4);
     case 8: return VAESNE_LAUNCH(8);
@@ -296,7 +297,8 @@ int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. row_max/row_sum: fp32 [R, H, Lq] or
-// both null. threshold 0 turns dropout off (the rate-0 kernel); out_scale
+// both null. threshold is the keep threshold thr32 of attention_common.cuh
+// (0 turns dropout off: the rate-0 kernel), full_hash 1 at width 32; out_scale
 // is 1/(1 - rate). Every pointer is 16-byte aligned. Returns the
 // cudaError_t of the launch (0 on success); the launch is asynchronous on
 // `stream`.
@@ -304,16 +306,17 @@ extern "C" int vaesne_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, void* row_max,
                                     void* row_sum, long long rows, int lq, int lk,
                                     int num_heads, int head_dim, int dtype, uint32_t seed,
-                                    int threshold, float out_scale, void* stream) {
+                                    uint32_t threshold, int full_hash, float out_scale,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(row_max);
   float* l = static_cast<float*>(row_sum);
   if ((m == nullptr) != (l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return dispatch_dh<float>(head_dim, q, k, v, mask, out, m, l, rows, lq, lk, num_heads,
-                              seed, threshold, out_scale, s);
+                              seed, threshold, full_hash, out_scale, s);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(head_dim, q, k, v, mask, out, m, l, rows, lq, lk,
-                                      num_heads, seed, threshold, out_scale, s);
+                                      num_heads, seed, threshold, full_hash, out_scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

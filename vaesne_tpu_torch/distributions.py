@@ -1,8 +1,9 @@
 """Distributions over tensors, for the PyTorch port.
 
 Small dataclasses in place of ``torch.distributions``: the same API as the
-JAX package's (``mean``, ``scale``, ``log_prob``, ``sample``, ``observed``),
-with a ``torch.Generator`` where JAX threads a PRNG key, and ``map`` to apply
+JAX package's (``mean``, ``variance``, ``scale``, ``log_prob``, ``sample``
+and its torch-style alias ``rsample``, ``observed``), with a
+``torch.Generator`` where JAX threads a PRNG key, and ``map`` to apply
 one tensor function to every array a distribution holds (the JAX package's
 ``tree_map`` over the pytree). Defaults everywhere are Laplace.
 ``MaskedGridLaplace.grid_loglik`` routes grids of 128 points or more to the
@@ -21,6 +22,7 @@ import torch
 
 from .ops import partition
 from .ops.dispatch import laplace_routes_to_kernel
+from .utils.rng import device_generator
 from .ops.laplace import masked_laplace_loglik, masked_laplace_loglik_reference
 
 Shape = Tuple[int, ...]
@@ -66,6 +68,10 @@ class Laplace:
     def mean(self) -> torch.Tensor:
         return self.loc.expand(self.batch_shape)
 
+    @property
+    def variance(self) -> torch.Tensor:
+        return (2.0 * self.scale**2).expand(self.batch_shape)
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return -torch.abs(x - self.loc) / self.scale - torch.log(2.0 * self.scale)
 
@@ -81,6 +87,8 @@ class Laplace:
                                                 device=self.loc.device), shape)
         u = (eps - 1.0) + (2.0 - eps) * u
         return self.loc - self.scale * torch.sign(u) * torch.log1p(-torch.abs(u))
+
+    rsample = sample  # the torch-style name, as in the JAX package
 
     @property
     def observed(self) -> "Laplace":
@@ -106,6 +114,10 @@ class Normal:
     def mean(self) -> torch.Tensor:
         return self.loc.expand(self.batch_shape)
 
+    @property
+    def variance(self) -> torch.Tensor:
+        return (self.scale**2).expand(self.batch_shape)
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         z = (x - self.loc) / self.scale
         return -0.5 * z**2 - torch.log(self.scale) - 0.5 * math.log(2.0 * math.pi)
@@ -117,6 +129,8 @@ class Normal:
                                                      dtype=self.loc.dtype,
                                                      device=self.loc.device), shape)
         return self.loc + self.scale * noise
+
+    rsample = sample
 
     @property
     def observed(self) -> "Normal":
@@ -148,12 +162,18 @@ class MaskedGridLaplace:
     def mean(self) -> torch.Tensor:
         return self.loc
 
+    @property
+    def variance(self) -> torch.Tensor:
+        return 2.0 * self.scale**2
+
     def log_prob(self, x: torch.Tensor) -> torch.Tensor:
         return Laplace(self.loc, self.scale).log_prob(x)
 
     def sample(self, generator: Optional[torch.Generator] = None,
                sample_shape: Union[int, Sequence[int]] = ()) -> torch.Tensor:
         return Laplace(self.loc, self.scale).sample(generator, sample_shape)
+
+    rsample = sample
 
     @property
     def observed(self) -> Laplace:
@@ -200,16 +220,24 @@ class MaskedGridLaplace:
 Distribution = Union[Laplace, Normal, MaskedGridLaplace]
 
 
-def get_mean(d: Distribution) -> torch.Tensor:
-    """Mean of a distribution (every distribution here has it in closed
-    form, so the JAX package's Monte Carlo fallback has no use)."""
-    return d.mean
+def get_mean(d, key: Optional[int] = None, K: int = 100) -> torch.Tensor:
+    """Mean of a distribution: ``d.mean`` where it has one (every
+    distribution here does), else the mean of K draws from a generator on
+    loc's device seeded with ``key``, the port's integer stand-in for the
+    JAX package's PRNG key; without one it raises, as the JAX package
+    does."""
+    mean = getattr(d, "mean", None)
+    if mean is not None:
+        return mean
+    if key is None:
+        raise ValueError("Distribution has no closed-form mean; pass a seed as key.")
+    return d.sample(device_generator(key, d.loc.device), (K,)).mean(0)
 
 
-def log_mean_exp(value: torch.Tensor, dim: int = 0, keepdim: bool = False) -> torch.Tensor:
-    """logsumexp(value, dim) − log(n)."""
-    n = value.shape[dim]
-    return torch.logsumexp(value, dim=dim, keepdim=keepdim) - math.log(n)
+def log_mean_exp(value: torch.Tensor, axis: int = 0, keepdims: bool = False) -> torch.Tensor:
+    """logsumexp(value, axis) − log(n), with the JAX package's keywords."""
+    n = value.shape[axis]
+    return torch.logsumexp(value, dim=axis, keepdim=keepdims) - math.log(n)
 
 
 def kl_divergence(d1: Distribution, d2: Distribution,

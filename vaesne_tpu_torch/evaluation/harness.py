@@ -9,8 +9,10 @@ reference's ``cannon/test/goldstein/`` scripts:
   * ``gradual_masking.py`` — robustness sweep masking 0–90 % of the light
     curve before cross-modal spectra reconstruction (``masking_sweep``)
 
-Each chunk runs the model under ``torch.inference_mode`` on the device and
-brings its outputs back as host numpy arrays, so the whole table (K = 100
+Each chunk runs the model under ``torch.inference_mode`` on the device, at
+the precision ``VAESNE_BF16`` asks for (bf16 autocast over the fp32 weights,
+as the JAX package's harness runs in bf16 under it), and brings its outputs
+back as host numpy arrays, so the whole table (K = 100
 draws of every test event) never has to stay on the card. Chunk i draws its
 posterior noise from ``fold_in(seed, i)``: the K-sample bands are not
 correlated across the test set. Every entry point runs on ``device``, by
@@ -26,6 +28,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..nn.layers import autocast, resolve_precision
 from ..ops import partition
 from ..parallel.mesh import Mesh, rank_device, shard_batch, shard_of
 from ..training import resolve_device, to_device
@@ -92,7 +95,9 @@ def batched_apply(
     chunk's events are split over the data axis, which must divide
     ``chunk_size`` (``shard_batch``), fn runs this rank's part (its draws the
     rank's part of the whole chunk's, ``distributions.draw_events``), and
-    the outputs are assembled on every rank."""
+    the outputs are assembled on every rank. Each chunk runs under bf16
+    autocast where ``VAESNE_BF16`` asks for it at this call."""
+    precision = resolve_precision(None)
     shard = None
     n = _first_leaf(data).shape[0]
     rem = (-n) % chunk_size
@@ -103,7 +108,7 @@ def batched_apply(
         chunk = _map(lambda a: a[start:start + chunk_size], data)
         if mesh is not None:
             chunk, shard = shard_batch(chunk, mesh), shard_of(mesh)
-        with partition.sharded(shard):
+        with partition.sharded(shard), autocast(precision):
             out = fn(chunk) if seed is None else fn(chunk, fold_in(seed, ci))
         if mesh is not None:
             axes = _map(lambda _: out_axes, out) if isinstance(out_axes, int) else out_axes
@@ -127,7 +132,9 @@ def batched_apply(
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+    """``t`` as host numpy; a bf16 output (``VAESNE_BF16``) as float32 with
+    the same values, as numpy has no bfloat16 without JAX's ml_dtypes."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
 def _unimodal(model, K: int, predictive: bool, device: torch.device):

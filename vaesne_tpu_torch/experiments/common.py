@@ -213,7 +213,12 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     config (tagged with its class), ``losses.npy`` and ``progress.json`` go
     to ``{ckpt_dir}/{ckpt_name}``; ``train.resume`` continues from there.
     ``callback(epoch, state, loss)`` runs after each epoch. The run is on
-    ``device``, by default the card.
+    ``device``, by default the card. As in the JAX package, the environment
+    sets what the steps compute: ``VAESNE_BF16`` trains under bf16 autocast
+    over fp32 parameters and moments (``make_scan_epoch``), ``VAESNE_REMAT=0``
+    turns the blocks' rematerialisation off (``TransformerStack``, read
+    when the model is built) and ``VAESNE_DROPOUT_BITS`` sets the width of
+    the kernels' dropout draws (``ops.attention.dropout_bits``).
 
     ``train.mesh`` (``parallel.resolve_mesh``) spreads the run over ranks:
     "N" is data parallelism over N ranks, "DxM" adds Megatron tensor

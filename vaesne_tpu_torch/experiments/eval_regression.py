@@ -88,7 +88,7 @@ def _run(argv, device, mesh):
 
     with torch.inference_mode():
         pred = batched_apply(head, x_test, chunk_size=CHUNK, out_axes=0, mesh=mesh)
-    absdiff = np.abs(pred.cpu().numpy() - te_labels)  # already in sigma units
+    absdiff = np.abs(pred.float().cpu().numpy() - te_labels)  # already in sigma units
     if rank() != 0:
         return absdiff
 

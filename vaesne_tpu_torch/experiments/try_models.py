@@ -29,6 +29,7 @@ synthetic images with an image VAE checkpoint. Checkpoints are the port's
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from ..data import multimodal_tuple, photometry_tuple, spectra_tuple
+from ..nn.layers import autocast, resolve_precision
 from ..training import resolve_device
 from ..utils.config import PhotoSpectraMMVAEConfig
 from ..utils.plotting import plot_lsst_lc, plot_spectra_samples
@@ -54,10 +56,21 @@ def _pyplot():
     return plt
 
 
+def _inference(device):
+    """Inference on ``device`` at the precision ``VAESNE_BF16`` asks for,
+    as the JAX package's figures are drawn in bf16 under it."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.inference_mode())
+    stack.enter_context(autocast(resolve_precision(None), device))
+    return stack
+
+
 def _np(tree):
     """Tensors (nested in lists and tuples) as host numpy arrays."""
     if isinstance(tree, (tuple, list)):
         return type(tree)(_np(t) for t in tree)
+    if tree.dtype == torch.bfloat16:  # a VAESNE_BF16 output; numpy has no bfloat16
+        tree = tree.float()
     return tree.detach().cpu().numpy()
 
 
@@ -87,7 +100,7 @@ def try_unimodal(which, data_path, ckpt, K, n_show, out_dir, device=None):
         batch = spectra_tuple(data, idx=te_idx, device=device)
         model = _restore(ckpt, build_spec(_config_for(ckpt, SpectraVAEConfig)))
     model = model.to(device).eval()
-    with torch.inference_mode():
+    with _inference(device):
         recon = _np(model.reconstruct(batch, K, generator=device_generator(0, device)))
     x = _np(batch)
     os.makedirs(out_dir, exist_ok=True)
@@ -119,7 +132,7 @@ def try_image(data_path, ckpt, K, n_show, out_dir, device=None):
     cfg = _config_for(ckpt, ImageVAEConfig)
     model = _restore(ckpt, build_image(cfg)).to(device).eval()
     images = make_images(n=n_show, img_size=cfg.img_size, channels=cfg.in_channels)
-    with torch.inference_mode():
+    with _inference(device):
         recon = _np(model.reconstruct(image_tuple(images, device), K,
                                       generator=device_generator(0, device)))
     os.makedirs(out_dir, exist_ok=True)
@@ -159,7 +172,7 @@ def try_ztf_spectra(data_path, ckpt, K, n_show, out_dir, device=None):
     fl_m, fl_s = float(data["flux_mean"]), float(data["flux_std"])
 
     N = 30
-    with torch.inference_mode():
+    with _inference(device):
         recon = _np(model.reconstruct(batch, K, generator=device_generator(0, device)))
         gens = _np(model.generate(N, batch, generator=device_generator(0, device)))
     x = _np(batch)
@@ -216,7 +229,7 @@ def try_ztf_mmvae(data_path, ckpt, K, n_show, out_dir, device=None):
     pt_m, pt_s = float(data["combined_time_mean"]), float(data["combined_time_std"])
 
     N = 30
-    with torch.inference_mode():
+    with _inference(device):
         recons = _np(model.reconstruct(batch, K, generator=device_generator(0, device)))
         gens = _np(model.generate(N, batch, generator=device_generator(0, device)))
     photo, spec = _np(batch)
@@ -313,7 +326,7 @@ def try_latent_swap(data_path, photo_ckpt, spec_ckpt, K, n_show, out_dir, device
     photo_model = _restore(photo_ckpt, build_photo(pcfg)).to(device).eval()
     spec_model = _restore(spec_ckpt, build_spec(scfg)).to(device).eval()
 
-    with torch.inference_mode():
+    with _inference(device):
         # posterior means [B, latent_len, latent_dim] with the K = 1 axis the
         # decoders expect (try_photospectra_model.py:83)
         z_photo = photo_model.encode(photo)[None]
@@ -389,7 +402,7 @@ def main(argv=None, device=None):
 
     # M x M reconstruction matrix, K posterior samples per cell; prior
     # generations conditioned on the first event's grids
-    with torch.inference_mode():
+    with _inference(device):
         recons = _np(model.reconstruct(batch, K, generator=device_generator(0, device)))
         gens = _np(model.generate(8, batch, generator=device_generator(0, device)))
     photo, spec = _np(batch)

@@ -23,6 +23,8 @@ GOLDSTEIN_LENGTH_RATIO = 982.0 / 60.0
 class MMVAE(nn.Module):
     """MoE-MMVAE over any list of modality VAEs (``vaes.0``, ``vaes.1``, …)."""
 
+    modality_name = "multimodal"
+
     prior = Laplace
 
     def __init__(self, vaes: Sequence[BaseVAE]):
@@ -96,6 +98,8 @@ class PhotoSpecMMVAE(MMVAE):
     Both sub-VAEs take ``beta``; modality 0 (photometry) also takes
     ``llik_scaling = length_ratio`` so a 60-point light curve is not drowned
     by a 982-bin spectrum. The sub-VAEs passed in are updated in place."""
+
+    modality_name = "photospectra"
 
     def __init__(self, vaes: Sequence[BaseVAE], beta: float = 1.0,
                  length_ratio: float = GOLDSTEIN_LENGTH_RATIO):

@@ -23,6 +23,8 @@ MASK_VARIANCE = 1e8
 class PhotometricVAE(BaseVAE):
     """Transformer VAE over masked, irregularly sampled light curves."""
 
+    modality_name = "light_curve"
+
     def __init__(self, num_bands: int = 6, latent_len: int = 8, latent_dim: int = 4,
                  model_dim: int = 64, num_heads: int = 4, ff_dim: int = 64,
                  num_layers: int = 4, dropout: float = 0.1, selfattn: bool = False,

@@ -23,6 +23,8 @@ MASK_VARIANCE = 1e10
 class SpectraVAE(BaseVAE):
     """Transformer VAE over masked spectra on a padded wavelength grid."""
 
+    modality_name = "spectrum"
+
     def __init__(self, latent_len: int = 4, latent_dim: int = 2, model_dim: int = 32,
                  num_heads: int = 4, ff_dim: int = 32, num_layers: int = 4,
                  dropout: float = 0.1, selfattn: bool = False, concat: bool = True,

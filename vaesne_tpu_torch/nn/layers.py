@@ -15,7 +15,10 @@ onto the other mechanically:
     (``ops.dispatch.routes_to_kernel``) go to the fused CUDA kernel.
   * ``TransformerBlock`` (post-LN, LayerNorm eps 1e-5, exact erf GELU) and
     ``TransformerStack`` (each block rematerialised in the backward, as in
-    the JAX package).
+    the JAX package, unless ``VAESNE_REMAT=0``).
+  * ``compute_dtype``, ``resolve_precision`` and ``autocast``: the JAX
+    package's ``VAESNE_BF16`` switch, which the train step, the server and
+    the evaluation harness read.
 
 Dropout follows the module's train/eval mode: ``model.eval()`` is the JAX
 package's ``deterministic=True``. In train mode every dropout site draws
@@ -26,7 +29,9 @@ a block re-run by ``torch.utils.checkpoint`` draws the same masks again.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -34,10 +39,52 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import attend, attention_weights, fused_attention, partition, routes_to_kernel
+from ..ops import (attend, attention_weights, dropout_bits, fused_attention, partition,
+                   pin_dropout_bits, routes_to_kernel)
 from ..utils.rng import device_generator, maybe_fold_in
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
+PRECISIONS = ("fp32", "bf16")
+
+
+def compute_dtype() -> Optional[torch.dtype]:
+    """``torch.bfloat16`` where ``VAESNE_BF16`` asks for bf16 compute, else
+    None (fp32). The JAX package's parse (``vaesne_tpu/nn/layers.py``):
+    anything but ``0``, ``false`` or ``False`` is on. The parameters stay
+    fp32 either way; the port computes in bf16 under autocast."""
+    return (torch.bfloat16
+            if os.environ.get("VAESNE_BF16", "0") not in ("0", "false", "False") else None)
+
+
+def resolve_precision(precision: Optional[str]) -> str:
+    """``precision`` checked, or where None what ``VAESNE_BF16`` says now
+    (``compute_dtype``): ``"fp32"`` or ``"bf16"``."""
+    if precision is None:
+        precision = "bf16" if compute_dtype() is not None else "fp32"
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be None, 'fp32' or 'bf16', got {precision!r}")
+    return precision
+
+
+def autocast(precision: str, device=None):
+    """bf16 autocast over fp32 weights where ``precision`` is ``"bf16"``
+    (nothing for ``"fp32"``), on ``device``'s type, or on the CPU and, where
+    one is present, the card when ``device`` is None."""
+    if precision != "bf16":
+        return contextlib.nullcontext()
+    if device is not None:
+        return torch.autocast(torch.device(device).type, dtype=torch.bfloat16)
+    stack = contextlib.ExitStack()
+    for kind in ("cpu", "cuda") if torch.cuda.is_available() else ("cpu",):
+        stack.enter_context(torch.autocast(kind, dtype=torch.bfloat16))
+    return stack
+
+
+def remat_default() -> bool:
+    """``TransformerStack``'s remat where none is given: the JAX package's
+    parse of ``VAESNE_REMAT`` (``os.environ.get("VAESNE_REMAT", "1") !=
+    "0"``: only ``0`` turns it off, so ``false`` leaves it on)."""
+    return os.environ.get("VAESNE_REMAT", "1") != "0"
 
 
 class SingleLayerMLP(nn.Module):
@@ -326,37 +373,42 @@ class TransformerBlock(nn.Module):
         return self.layernorm3(x + dropout(h, rate, site(6)))
 
 
-def _run_in_mode(block: nn.Module, training: bool, *args):
-    """Run ``block`` in the train/eval mode it had at the forward. The
-    checkpoint's re-run comes in the backward, when the caller may have
-    switched modes (``encode`` runs an encoder in eval mode inside a
-    training step)."""
-    if block.training == training:
-        return block(*args)
-    was = block.training
-    block.train(training)
-    try:
-        return block(*args)
-    finally:
-        block.train(was)
+def _run_in_mode(block: nn.Module, training: bool, bits: int, *args):
+    """Run ``block`` in the train/eval mode and at the kernels' dropout
+    width ``bits`` it had at the forward. The checkpoint's re-run comes in
+    the backward, when the caller may have switched modes (``encode`` runs
+    an encoder in eval mode inside a training step) or the environment."""
+    with pin_dropout_bits(bits):
+        if block.training == training:
+            return block(*args)
+        was = block.training
+        block.train(training)
+        try:
+            return block(*args)
+        finally:
+            block.train(was)
 
 
 class TransformerStack(nn.Module):
     """``num_layers`` TransformerBlocks ``block_i`` applied in turn; block i
     takes ``fold_in(seed, i)``.
 
-    ``remat`` (default on, as in the JAX package) rematerialises each block
-    in the backward whenever gradients are recorded:
+    ``remat`` (None: ``remat_default()``, on unless ``VAESNE_REMAT=0``, as
+    in the JAX package, read when the stack is built where the JAX package
+    reads it once, at import) rematerialises each block in the backward
+    whenever gradients are recorded:
     ``torch.utils.checkpoint`` keeps only the block's inputs and re-runs it
     before its backward, trading compute for the activations over the
-    982-token grids. The block's seed is an argument of the checkpointed
-    call, so the re-run draws the same dropout masks."""
+    982-token grids. The block's seed and the kernels' dropout width are
+    arguments of the checkpointed call, so the re-run draws the same
+    dropout masks."""
 
     def __init__(self, embed_dim: int, num_heads: int, ff_dim: int, num_layers: int,
-                 dropout: float = 0.1, context_self_attn: bool = False, remat: bool = True):
+                 dropout: float = 0.1, context_self_attn: bool = False,
+                 remat: Optional[bool] = None):
         super().__init__()
         self.num_layers = num_layers
-        self.remat = remat
+        self.remat = remat_default() if remat is None else remat
         for i in range(num_layers):
             self.add_module(f"block_{i}", TransformerBlock(
                 embed_dim, num_heads, ff_dim, dropout, context_self_attn))
@@ -366,12 +418,13 @@ class TransformerStack(nn.Module):
                 context_mask: Optional[torch.Tensor] = None,
                 seed: Optional[int] = None) -> torch.Tensor:
         remat = self.remat and torch.is_grad_enabled()
+        bits = dropout_bits() if remat else None
         for i in range(self.num_layers):
             block = getattr(self, f"block_{i}")
             args = (x, context, mask, context_mask, maybe_fold_in(seed, i))
             if remat:
                 # no global generator is drawn from, so none is saved either
-                x = checkpoint(_run_in_mode, block, self.training, *args,
+                x = checkpoint(_run_in_mode, block, self.training, bits, *args,
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(*args)

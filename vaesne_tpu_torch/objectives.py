@@ -56,13 +56,18 @@ def _rngs(model, x, seed: int):
     return device_generator(fold_in(seed, 0), device), drop
 
 
-def elbo(model, x, K: int = 1, *, seed: int) -> torch.Tensor:
+def elbo(model, x, K: int = 1, *, seed: int, debug: bool = False) -> torch.Tensor:
     """E[log p(x|z)]·llik_scaling − KL(q‖p), averaged over K and batch, for
-    one modality VAE; ``x[0]`` is the observed grid."""
+    one modality VAE; ``x[0]`` is the observed grid. ``debug`` prints the
+    terms as the JAX package does, ``kl: <mean KL>, llk: <−mean log-lik>``
+    (a host sync)."""
     generator, drop = _rngs(model, x, seed)
     qz_x, px_z, _ = model(x, K, generator=generator, seed=drop)
     lpx_z = grid_loglik(px_z, x[0]) * model.total_llik_scaling  # [K, B]
     kld = kl_divergence(qz_x, model.pz(x[0].device))  # [B, L, D]
+    if debug:
+        print(f"kl: {kld.sum((-1, -2)).mean().detach().cpu().numpy()}, "
+              f"llk: {(-lpx_z.mean()).detach().cpu().numpy()}")
     return (lpx_z - kld.sum((-1, -2))[None, :]).mean()
 
 
@@ -108,7 +113,7 @@ def m_iwae_log_weights(qz_xs, px_zs, zss, x, scalings, pz) -> torch.Tensor:
 def m_iwae_terms(qz_xs, px_zs, zss, x, scalings, pz) -> torch.Tensor:
     """The MoE-IWAE estimator on precomputed forward outputs: the
     log-weights' log-mean-exp over the (M·K) axis, summed over batch."""
-    return log_mean_exp(m_iwae_log_weights(qz_xs, px_zs, zss, x, scalings, pz), dim=0).sum()
+    return log_mean_exp(m_iwae_log_weights(qz_xs, px_zs, zss, x, scalings, pz), axis=0).sum()
 
 
 def m_iwae(model, x, K: int = 1, *, seed: int) -> torch.Tensor:

@@ -27,15 +27,21 @@ memory (the design notes are in the CUDA sources).
 
 **Dropout mask.** The JAX package's own counter hash (``_hash_bits``, the
 stream its kernels use in interpret mode) with its single-draw seeding and
-8-bit threshold: for row r, head h, query q and key j, with the query tile
+its draw width w of ``VAESNE_DROPOUT_BITS`` (8, the default, 16 or 32;
+``dropout_bits``): for row r, head h, query q and key j, with the query tile
 qt = min(1024, max(128, ⌈Lq/128⌉·128)),
 
     block_seed = seed + (r·H + h)·1024 + ⌊q/qt⌋·(qt/128)   (uint32)
-    keep  ⇔  hash(block_seed, q mod qt, j) >> 24  ≥  round(256·rate)
+    keep  ⇔  hash(block_seed, q mod qt, j) >> (32 − w)  ≥  round(2ʷ·rate)
 
-so the keep probability is quantised to a multiple of 1/256 (230/256 at rate
-0.1), while the kept weights are rescaled by 1/(1 − rate) exactly, as in the
-JAX package. ``dropout_keep`` is the plain version of the same function.
+so the keep probability is quantised to a multiple of 1/2ʷ (230/256 at rate
+0.1 and w = 8), while the kept weights are rescaled by 1/(1 − rate) exactly,
+as in the JAX package. The kernels take the threshold shifted to 32 bits,
+round(2ʷ·rate)·2³²⁻ʷ, and compare the hash with it. A forward keeps the
+width it ran at for its backward, and ``TransformerStack``'s rematerialised
+re-run takes the forward's too (``pin_dropout_bits``), so a change of the
+environment between them cannot change a mask. ``dropout_keep`` is the
+plain version of the same function.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (``attention_reference``, ``attention_stats_reference``,
@@ -45,8 +51,11 @@ forward. The mask gets no gradient.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import os
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -64,7 +73,7 @@ MASK_BIAS = -1e9
 
 # dropout hash (vaesne_tpu/ops/attention.py::_hash_bits, _dropout_mask)
 Q_TILE = 1024
-DROPOUT_BITS = 8
+DROPOUT_WIDTHS = (8, 16, 32)  # VAESNE_DROPOUT_BITS; 8 by default
 _M32 = 0xFFFFFFFF
 _C_SEED, _C_ROW, _C_COL = 0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35
 _C_MIX1, _C_MIX2 = 0x7FEB352D, 0x846CA68B
@@ -76,9 +85,42 @@ def hash_tile(lq: int) -> int:
     return min(Q_TILE, max(128, -(-lq // 128) * 128))
 
 
-def drop_threshold(rate: float) -> int:
-    """Keep a weight iff its 8-bit draw is at least this (26 at rate 0.1)."""
-    return min(round(rate * 2 ** DROPOUT_BITS), 2 ** DROPOUT_BITS - 1)
+_pinned = threading.local()  # a width pinned by pin_dropout_bits, per thread
+
+
+def dropout_bits() -> int:
+    """The width w of the dropout draws: the one ``pin_dropout_bits`` holds
+    in this thread, else ``VAESNE_DROPOUT_BITS`` (default 8) with the JAX
+    package's parse and error (``vaesne_tpu/ops/attention.py::_dropout_bits``)."""
+    bits = getattr(_pinned, "bits", None)
+    if bits is not None:
+        return bits
+    w = int(os.environ.get("VAESNE_DROPOUT_BITS", "8"))
+    if w not in DROPOUT_WIDTHS:
+        raise ValueError(f"VAESNE_DROPOUT_BITS={w} must be 8, 16 or 32")
+    return w
+
+
+@contextlib.contextmanager
+def pin_dropout_bits(bits: int):
+    """``dropout_bits()`` is ``bits`` in this thread inside the block (a
+    rematerialised re-run takes its forward's width this way)."""
+    if bits not in DROPOUT_WIDTHS:
+        raise ValueError(f"dropout width {bits} must be 8, 16 or 32")
+    prev = getattr(_pinned, "bits", None)
+    _pinned.bits = bits
+    try:
+        yield
+    finally:
+        _pinned.bits = prev
+
+
+def drop_threshold(rate: float, bits: Optional[int] = None) -> int:
+    """Keep a weight iff its w-bit draw is at least this: round(2ʷ·rate),
+    capped at 2ʷ − 1 (26 at rate 0.1 and w = 8); w = ``bits`` or
+    ``dropout_bits()``."""
+    w = dropout_bits() if bits is None else bits
+    return min(round(rate * 2 ** w), 2 ** w - 1)
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -89,9 +131,11 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def dropout_keep(seed: int, rows: int, num_heads: int, lq: int, lk: int, rate: float,
-                 device=None) -> torch.Tensor:
+                 device=None, bits: Optional[int] = None) -> torch.Tensor:
     """The kernels' keep mask, bool [rows, H, Lq, Lk], as plain int64 tensor
-    arithmetic (see the module docstring)."""
+    arithmetic (see the module docstring), at draw width ``bits`` (None:
+    ``dropout_bits()``)."""
+    w = dropout_bits() if bits is None else bits
     qt = hash_tile(lq)
     i64 = dict(dtype=torch.int64, device=device)
     r = torch.arange(rows, **i64).view(-1, 1, 1)
@@ -106,7 +150,7 @@ def dropout_keep(seed: int, rows: int, num_heads: int, lq: int, lk: int, rate: f
     x = x ^ (x >> 15)
     x = _mul32(x, _C_MIX2)
     x = x ^ (x >> 16)
-    return (x >> (32 - DROPOUT_BITS)) >= drop_threshold(rate)
+    return (x >> (32 - w)) >= drop_threshold(rate, w)
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:  # [R, L, E] -> [R, L, H, Dh]
@@ -138,16 +182,18 @@ def attend(weights: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tens
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_padding_mask: Optional[torch.Tensor], num_heads: int,
-                        dropout: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+                        dropout: float = 0.0, seed: Optional[int] = None,
+                        bits: Optional[int] = None) -> torch.Tensor:
     """The plain version: einsum, −1e9 mask bias, softmax, dropout of the
-    weights with ``dropout_keep`` (rescaled by 1/(1 − rate)), einsum, over
-    ``[R, L, E]`` (dropout needs exactly one leading axis)."""
+    weights with ``dropout_keep`` at width ``bits`` (rescaled by
+    1/(1 − rate)), einsum, over ``[R, L, E]`` (dropout needs exactly one
+    leading axis)."""
     weights = attention_weights(q, k, key_padding_mask, num_heads)
     if dropout > 0.0:
         if seed is None:
             raise ValueError("attention dropout needs a seed")
         keep = dropout_keep(seed, q.shape[0], num_heads, q.shape[1], k.shape[1], dropout,
-                            q.device)
+                            q.device, bits)
         weights = torch.where(keep, weights * (1.0 / (1.0 - dropout)), 0.0)
     return attend(weights, v, num_heads)
 
@@ -161,12 +207,13 @@ def attention_stats_reference(q, k, key_padding_mask, num_heads):
 
 
 def attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
-                                 dropout: float = 0.0, seed: Optional[int] = None):
+                                 dropout: float = 0.0, seed: Optional[int] = None,
+                                 bits: Optional[int] = None):
     """The plain version of K2: (dq, dk, dv) by autograd through
     ``attention_reference``."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = attention_reference(*leaves, key_padding_mask, num_heads, dropout, seed)
+        out = attention_reference(*leaves, key_padding_mask, num_heads, dropout, seed, bits)
         return torch.autograd.grad(out, leaves, dout)
 
 
@@ -209,13 +256,16 @@ def _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
 
 
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGS = (_p,) * 7 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p)
-_BWD_ARGS = (_p,) * 13 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _i, _f, _p)
+_FWD_ARGS = (_p,) * 7 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _u, _i, _f, _p)
+_BWD_ARGS = (_p,) * 13 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _u, _i, _f, _p)
 
 
-def _dropout_args(rate, seed):
-    """(seed as uint32, threshold, 1/(1 − rate)) for the kernels."""
-    return (0 if seed is None else seed & _M32), drop_threshold(rate), 1.0 / (1.0 - rate)
+def _dropout_args(rate, seed, bits):
+    """(seed as uint32, the keep threshold shifted to 32 bits, 1 where the
+    width is 32 (the hash's last step then counts), 1/(1 − rate)) for the
+    kernels."""
+    return ((0 if seed is None else seed & _M32), drop_threshold(rate, bits) << (32 - bits),
+            int(bits == 32), 1.0 / (1.0 - rate))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -231,13 +281,17 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_padding_mask: Optional[torch.Tensor], num_heads: int,
                         dropout_rate: float = 0.0, seed: Optional[int] = None,
-                        stats: bool = True):
+                        stats: bool = True, bits: Optional[int] = None):
     """K1: (out [R, Lq, E] in q's dtype, m, l) with m, l the fp32 row max
     and row sum [R, H, Lq] of the exp2-domain logits (None unless
-    ``stats``). Launches on the current stream without synchronising."""
+    ``stats``), its dropout drawn at width ``bits`` (None:
+    ``dropout_bits()``). Launches on the current stream without
+    synchronising."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    bits = dropout_bits() if bits is None else bits
     if q.device.type == "cpu":
-        out = attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+        out = attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed,
+                                  bits)
         if not stats:
             return out, None, None
         return (out, *attention_stats_reference(q, k, key_padding_mask, num_heads))
@@ -251,11 +305,10 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if R == 0 or lq == 0:
         return out, m, l
     fn = _build.function("attention_fwd", "vaesne_attention_fwd", _FWD_ARGS)
-    seed32, thr, scale = _dropout_args(dropout_rate, seed)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), _ptr(m), _ptr(l), R, lq, k.shape[1], num_heads,
-                e // num_heads, _DTYPE_CODES[q.dtype], seed32, thr, scale,
+                e // num_heads, _DTYPE_CODES[q.dtype], *_dropout_args(dropout_rate, seed, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_fwd")
     global launches, dropout_launches
@@ -266,15 +319,18 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                         num_heads: int, dropout_rate: float = 0.0,
-                        seed: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+                        seed: Optional[int] = None,
+                        bits: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """K2: (dq, dk, dv) in q's dtype, from the forward's inputs, its output
-    ``out`` and statistics, and the output gradient ``dout``. Launches one
-    kernel on the current stream, with fp32 scratch for the delta row term
-    Σ_d dout·out and the dq sums."""
+    ``out`` and statistics, and the output gradient ``dout``, with the
+    forward's dropout width ``bits`` (None: ``dropout_bits()``). Launches
+    one kernel on the current stream, with fp32 scratch for the delta row
+    term Σ_d dout·out and the dq sums."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    bits = dropout_bits() if bits is None else bits
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
-                                            dropout_rate, seed)
+                                            dropout_rate, seed, bits)
     R, lq, e = q.shape
     lk, hd = k.shape[1], e // num_heads
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
@@ -297,7 +353,7 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                 out.data_ptr(), dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
                 delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
-                *_dropout_args(dropout_rate, seed),
+                *_dropout_args(dropout_rate, seed, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_bwd")
     global bwd_launches
@@ -307,15 +363,16 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
 
 class _FusedAttention(torch.autograd.Function):
     """K1 forward, K2 backward. The statistics and the output ride along as
-    saved tensors; under ``torch.utils.checkpoint`` the forward re-runs in
-    the backward with the same seed, so it regenerates the same mask."""
+    saved tensors, the dropout width in the context; under
+    ``torch.utils.checkpoint`` the forward re-runs in the backward with the
+    same seed and width, so it regenerates the same mask."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
+    def forward(ctx, q, k, v, key_padding_mask, num_heads, dropout_rate, seed, bits):
         out, m, l = fused_attention_fwd(q, k, v, key_padding_mask, num_heads,
-                                        dropout_rate, seed, stats=True)
+                                        dropout_rate, seed, stats=True, bits=bits)
         ctx.save_for_backward(q, k, v, key_padding_mask, out, m, l)
-        ctx.config = (num_heads, dropout_rate, seed)
+        ctx.config = (num_heads, dropout_rate, seed, bits)
         ctx.mark_non_differentiable(m, l)
         return out, m, l
 
@@ -324,7 +381,7 @@ class _FusedAttention(torch.autograd.Function):
         q, k, v, key_padding_mask, out, m, l = ctx.saved_tensors
         dq, dk, dv = fused_attention_bwd(q, k, v, key_padding_mask, out, m, l,
                                          dout.to(q.dtype).contiguous(), *ctx.config)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -338,12 +395,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (True = ignore) or None. Returns [R, Lq, E] in q's dtype (float32 or
     bfloat16; softmax statistics and sums in fp32). On CUDA tensors it launches K1, and
     K2 in the backward when q, k or v needs a gradient; on CPU tensors it
-    computes ``attention_reference``, which autograd differentiates."""
+    computes ``attention_reference``, which autograd differentiates. The
+    dropout draws have the width ``dropout_bits()`` gives at this call."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+    bits = dropout_bits()
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
+        return attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed,
+                                   bits)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FusedAttention.apply(q, k, v, key_padding_mask, num_heads, dropout_rate,
-                                     seed)[0]
+                                     seed, bits)[0]
     return fused_attention_fwd(q, k, v, key_padding_mask, num_heads, dropout_rate, seed,
-                               stats=False)[0]
+                               stats=False, bits=bits)[0]

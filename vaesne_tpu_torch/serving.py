@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .nn.layers import autocast, resolve_precision
 from .ops import partition
 
 DEFAULT_BUCKETS = (8, 32, 128, 512)
@@ -82,9 +83,11 @@ class InferenceServer:
     """Serve a (MM)VAE ``model`` with bucketed batch shapes.
 
     The model is moved to ``device`` (default ``"cuda"``; raises where no
-    CUDA device is present) and put in eval mode. ``precision`` is None or
+    CUDA device is present) and put in eval mode. ``precision`` is
     ``"fp32"`` (float32 throughout) or ``"bf16"`` (bfloat16 autocast over
-    the float32 weights, scoped to each call).
+    the float32 weights, scoped to each call); None follows ``VAESNE_BF16``
+    as the JAX server does, read once, when the server is built (the JAX
+    server reads it when each program is traced).
 
     ``mesh`` (a ``parallel`` mesh this process is a rank of, on its device
     unless ``device`` says otherwise): every rank builds the server and
@@ -98,9 +101,7 @@ class InferenceServer:
                  precision: Optional[str] = None, device=None, mesh=None):
         if not buckets or sorted(buckets) != list(buckets):
             raise ValueError(f"buckets must be ascending, got {buckets}")
-        if precision not in (None, "fp32", "bf16"):
-            raise ValueError(
-                f"precision must be None, 'fp32' or 'bf16', got {precision!r}")
+        precision = resolve_precision(precision)
         self._mesh, self._shard = mesh, None
         if mesh is not None:
             from .parallel.mesh import rank_device, shard_of
@@ -161,6 +162,11 @@ class InferenceServer:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def model(self) -> torch.nn.Module:
+        """The served model, in eval mode on the server's device."""
+        return self._model
 
     # -- internals ---------------------------------------------------------
 
@@ -225,8 +231,7 @@ class InferenceServer:
         return partition.gather_events(t, axis, self._shard)
 
     def _autocast(self):
-        return torch.autocast(self._device.type, dtype=torch.bfloat16,
-                              enabled=self._precision == "bf16")
+        return autocast(self._precision, self._device)
 
     def _require_mmvae(self, task: str):
         if not hasattr(self._model, "vaes"):

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .nn.layers import cudnn_fp32_deterministic
+from .nn.layers import autocast, cudnn_fp32_deterministic, resolve_precision
 from .ops import partition
 from .utils.rng import draw_seed, fold_in
 
@@ -261,13 +261,15 @@ def _global_norm(state: "TrainState", grads, shard) -> Optional[torch.Tensor]:
 
 def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                     accum_steps: int = 1, accum_reduction: str = "mean", device=None,
-                    precision: str = "fp32", mesh=None):
+                    precision: Optional[str] = None, mesh=None):
     """The train step ``step(state, batch) -> (state, loss)``: gradients of
     ``-loss_fn`` (accumulated over ``accum_steps`` microbatches when > 1),
     the global-norm clip, then the AdamW update. ``batch`` is moved to
     ``device`` (default: the card). ``precision="bf16"`` runs the forward
-    under bf16 autocast over the fp32 weights (the JAX package's
-    ``VAESNE_BF16``). The loss stays on the device.
+    under bf16 autocast over the fp32 weights, whose AdamW moments stay fp32
+    (the JAX package's ``VAESNE_BF16``); None takes ``VAESNE_BF16`` as it
+    stands when the step is built (``nn.layers.resolve_precision``). The
+    loss stays on the device.
 
     ``mesh`` (a ``parallel`` mesh this process is a rank of): the step
     takes the global batch and runs this rank's slice of it under DDP over
@@ -277,8 +279,7 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     norm is taken after the gradient all-reduce, over the whole gradient
     of a tensor-parallel model."""
     device = resolve_device(device)
-    if precision not in ("fp32", "bf16"):
-        raise ValueError(f"precision must be 'fp32' or 'bf16', got {precision!r}")
+    precision = resolve_precision(precision)
     shard = None
     if mesh is not None:
         from .parallel.mesh import shard_batch, shard_of
@@ -287,7 +288,7 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     wrapped = []  # the DDP module, built at the first step on every rank
 
     def neg_loss(m, b, seed):
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=precision == "bf16"):
+        with autocast(precision, device):
             return -loss_fn(m, b, seed)
 
     def objective():
@@ -373,16 +374,17 @@ def train_epoch(state: TrainState, step_fn, data, batch_size: int,
 
 def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                     accum_steps: int = 1, accum_reduction: str = "mean", device=None,
-                    mesh=None):
+                    mesh=None, precision: Optional[str] = None):
     """The whole-epoch train function ``run(state, data, generator,
     batch_size) -> (state, mean loss)``, the counterpart of the JAX
-    package's ``make_scan_epoch``: ``train_epoch`` over ``make_train_step``.
+    package's ``make_scan_epoch``: ``train_epoch`` over ``make_train_step``
+    at ``precision`` (None: ``VAESNE_BF16`` when the function is built).
     The steps run eagerly and the host syncs once, for the mean loss; a
     CUDA graph of the step is later work. Under ``mesh`` every rank draws
     the same permutation and each step runs the rank's slice of the batch
     (``make_train_step``)."""
     step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
-                           mesh=mesh)
+                           precision, mesh)
 
     def run(state: TrainState, data, generator: torch.Generator,
             batch_size: int) -> Tuple[TrainState, float]:
