@@ -117,6 +117,20 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      (artifacts/queue3_bf16_k2/); (f) the four newly bridged checkpoints
      served on the card within 1e-4 of their JAX outputs, K1's launches as
      predicted.
+ 17. train.scan_epoch: one CUDA graph of the train step, replayed at every
+     step after a warm-up step, against the step loop
+     (train.scan_epoch=false): (a) train_photospectra (B = 16, K = 2,
+     dropout 0.1) for 3 epochs in fp32, the two bitwise equal (parameters,
+     AdamW state, step, generator, losses) with phase 10's launches every
+     epoch, the graph run's epoch-2 checkpoint resumed under the graph
+     bitwise the run, then in bf16 and at train.accum_steps=2; (b)
+     train_image in fp32 and a bf16 run resumed from its epoch-2
+     checkpoint, train_contrastive at its defaults and with
+     model.selfattn=true, a frozen-backbone train_regression, each bitwise
+     its step loop; (c) samples/s, busy share and peak memory of graph and
+     step loop: the B = 16 driver in fp32 and bf16, bench.py's B = 192
+     step in fp32 and bf16 with VAESNE_REMAT 1 and 0, train_image,
+     train_contrastive.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -172,9 +186,10 @@ from vaesne_tpu_torch.experiments import (
 )
 from vaesne_tpu_torch.experiments.common import optimizer_from_config, resolve_dataset
 from vaesne_tpu_torch.nn import GumbelSoftmax, RelativeMultiHeadAttention, TransformerModel
-from vaesne_tpu_torch.ops import _build, laplace_routes_to_kernel, routes_to_kernel
+from vaesne_tpu_torch.ops import _build, counters, laplace_routes_to_kernel, routes_to_kernel
+from vaesne_tpu_torch import training
 from vaesne_tpu_torch.training import to_device
-from vaesne_tpu_torch.utils import fold_in, torch_port
+from vaesne_tpu_torch.utils import fold_in, rng, torch_port
 from vaesne_tpu_torch.utils.config import (
     ContrastiveConfig,
     ImageVAEConfig,
@@ -299,6 +314,12 @@ def decoder_launches(d, rows):
 
 
 # -- timing --------------------------------------------------------------------
+
+def seed_word(seed):
+    """K1/K2's dropout seed as its word on the card, made once: a timed
+    call then launches the kernel alone (an int seed adds the word's fill)."""
+    return rng.seed_word(seed, "cuda")
+
 
 def time_ms(fn, reps=10, warmup=3, inner=1):
     """Median milliseconds of one ``fn`` call on the card: CUDA events
@@ -807,13 +828,12 @@ COUNTERS = ("K1 rate>0", "K1", "K2", "K3", "K4")
 
 
 def kernel_counts():
-    return (attention.dropout_launches, attention.launches, attention.bwd_launches,
-            laplace.launches, laplace.bwd_launches)
+    counts = counters.launch_counts()
+    return tuple(counts[name] for name in COUNTERS)
 
 
 def reset_counts():
-    attention.launches = attention.dropout_launches = attention.bwd_launches = 0
-    laplace.launches = laplace.bwd_launches = 0
+    counters.set_launch_counts(dict.fromkeys(COUNTERS, 0))
 
 
 def train_step_prediction(batch_size, dropout, remat=True):
@@ -1150,11 +1170,13 @@ def phase_drivers(seed):
 
     reset_counts()
     mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+    captured = training.captures
     state_a, losses_a = train_photospectra.main(
         driver_args(seed, dir_a, f"train.epochs={DRIVER_EPOCHS}", "train.save_every=1"),
         callback=on_epoch)
     launches_a = dict(zip(COUNTERS, kernel_counts()))
-    log(10, f"(a) main path (drivers): launches {launches_a}")
+    log(10, f"(a) main path (drivers): launches {launches_a}; CUDA graphs of the step "
+            f"captured {training.captures - captured} (train.scan_epoch=true)")
     assert len(losses_a) == DRIVER_EPOCHS and all(v > 0 for v in launches_a.values())
     rates = [B_DRIVER * steps / t for t, steps in epochs]
     med_rate = statistics.median(rates[1:])
@@ -1752,12 +1774,12 @@ def phase_image_times():
         calls = {"fwd0": lambda: attention.fused_attention(q, k, v, None, HEADS)}
         r = res[label] = {"b_f0": attention_bound(rows, n, n, torch.float32, False)}
         if label != "image_r400":
-            dout = randn_like(q, 801)
+            dout, word = randn_like(q, 801), seed_word(3)
             out, m, l = attention.fused_attention_fwd(q, k, v, None, HEADS, DROPOUT, 3)
             calls["fwd"] = lambda: attention.fused_attention_fwd(q, k, v, None, HEADS, DROPOUT,
-                                                                 3)
+                                                                 word)
             calls["bwd"] = lambda: attention.fused_attention_bwd(q, k, v, None, out, m, l, dout,
-                                                                 HEADS, DROPOUT, 3)
+                                                                 HEADS, DROPOUT, word)
             r["b_f"] = attention_bound(rows, n, n, torch.float32, False, stats=True)
             r["b_b"] = attention_bwd_bound(rows, n, n, torch.float32)
         for key, fn in calls.items():
@@ -2068,12 +2090,12 @@ def phase_contrastive_selfattn(seed):
     assert mask is not None and not bool(mask[:, -1].any())  # the phase token is observed
     worst = hold_attention(q, k, v, mask, f"(c) captured [{B_CONTRA}, {CONTEXT}, {MODEL_DIM}] "
                                           f"({mask.float().mean().item():.1%} of keys masked)", 13)
-    dout = randn_like(q, 1310)
+    dout, word = randn_like(q, 1310), seed_word(3)
     out, m, l = attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, 3)
     dev = {"fwd0": lambda: attention.fused_attention(q, k, v, mask, HEADS),
-           "fwd": lambda: attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, 3),
+           "fwd": lambda: attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, word),
            "bwd": lambda: attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, HEADS,
-                                                        DROPOUT, 3)}
+                                                        DROPOUT, word)}
     t = {}
     for key, fn in dev.items():
         t[key], kernels, _ = device_kernels(fn)
@@ -2662,14 +2684,14 @@ def phase_transformer_model(seed):
     del store[:]
     worst = hold_attention(q, k, v, m, f"(a) captured [{rows}, {NS}, {MODEL_DIM}] "
                                        f"({m.float().mean().item():.1%} of keys masked)", 15)
-    dout = randn_like(q, 1510)
+    dout, word = randn_like(q, 1510), seed_word(5)
     o, mx, l = attention.fused_attention_fwd(q, k, v, m, HEADS, DROPOUT, 5)
     t = {}
     for key, fn in (("fwd0", lambda: attention.fused_attention(q, k, v, m, HEADS)),
                     ("fwd", lambda: attention.fused_attention_fwd(q, k, v, m, HEADS, DROPOUT,
-                                                                  5)),
+                                                                  word)),
                     ("bwd", lambda: attention.fused_attention_bwd(q, k, v, m, o, mx, l, dout,
-                                                                  HEADS, DROPOUT, 5))):
+                                                                  HEADS, DROPOUT, word))):
         t[key], kernels, _ = device_kernels(fn)
         assert kernels == 1, (key, kernels)
     t.update({"plain_f0": time_ms(lambda: attention.attention_reference(q, k, v, m, HEADS)),
@@ -2935,18 +2957,24 @@ def phase_bf16_driver(seed, fp32_rate, fp32_busy):
     with switch("VAESNE_BF16", "1"):
         reset_counts()
         mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+        captured = training.captures
         with kernel_inputs(record):
             state_a, losses_a = train_photospectra.main(
                 driver_args(seed, dir_a, f"train.epochs={BF16_EPOCHS}", "train.save_every=1"),
                 callback=on_epoch)
         launches = dict(zip(COUNTERS, kernel_counts()))
+        # the CUDA graph's replays rerun K3 without grid_loglik's Python: it
+        # runs in the warm-up step and the capture of each graph alone
+        captured = training.captures - captured
+        python_steps = 2 * captured if captured else launches["K3"] // per_step[3]
         state_b, losses_b = train_photospectra.main(driver_args(
             seed, dir_b, f"train.epochs={BF16_EPOCHS}", "train.resume=true", "train.save_every=1"))
     log(16, f"(a) main path (VAESNE_BF16=1 train_photospectra, {BF16_EPOCHS} epochs): launches "
             f"{launches}; K1 q {record['K1']}, K2 q {record['K2']}, K3 loc {record['K3']}; "
-            f"{record['grids']} routed grid_loglik forwards, {launches['K3']} K3")
+            f"{record['grids']} routed grid_loglik forwards in the {python_steps} steps that ran "
+            f"them ({per_step[3]} K3 a step)")
     assert record["K1"] == record["K2"] == record["K3"] == {torch.bfloat16}, record
-    assert record["grids"] == launches["K3"] > 0, (record["grids"], launches)
+    assert record["grids"] == python_steps * per_step[3] > 0, (record["grids"], python_steps)
     bitwise = losses_b == losses_a and state_b.step == state_a.step and all(
         torch.equal(x, y) for x, y in zip(state_a.model.parameters(), state_b.model.parameters()))
     moments = [t for st in state_a.optimizer.state.values() for t in st.values()
@@ -3269,6 +3297,222 @@ def phase_switches(seed, fp32_rate=float("nan"), fp32_busy=float("nan"),
     }
 
 
+# -- the CUDA graph of the train step (train.scan_epoch) --------------------------
+
+GRAPH_EPOCHS = 3  # epoch 1 holds the warm-up step and the capture, 2 is timed, 3 profiled
+GRAPH_STEPS = 4   # steps an epoch of the B = 192 step's runs
+
+
+def _state_tensors(state):
+    """The parameters, then every tensor of AdamW's state (moments and step
+    counts), in order."""
+    return [*state.model.parameters(), *(t for st in state.optimizer.state.values()
+                                         for t in st.values() if torch.is_tensor(t))]
+
+
+def _same_state(a, b):
+    """True where two TrainStates hold bitwise the same parameters, AdamW
+    state, step and generator."""
+    ta, tb = _state_tensors(a), _state_tensors(b)
+    return (a.step == b.step and len(ta) == len(tb) and torch.equal(a.generator.get_state(),
+                                                                   b.generator.get_state())
+            and all(torch.equal(x, y) for x, y in zip(ta, tb)))
+
+
+def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=False,
+              resume=False):
+    """``main(argv)`` with train.scan_epoch=true (the graph) and false (the
+    step loop), from one seed: each epoch's launches against ``per_step``;
+    epoch 2's samples/s (host clock from one epoch's end to the next, the
+    save included), epoch 3's busy share (``profile``: device activity
+    alone) and the run's peak memory; the two runs' parameters, AdamW
+    state, step, generator and losses bitwise equal; with ``resume`` the
+    graph run's epoch-2 checkpoint resumed under the graph to ``epochs``,
+    bitwise the graph run. Returns {"graph": numbers, "eager": numbers}
+    (the graph's with the run's launches)."""
+    out, states = {}, {}
+    base = os.path.join(SMOKE_DIR, "graph", "".join(ch if ch.isalnum() else "_" for ch in label))
+    shutil.rmtree(base, ignore_errors=True)
+    for scan, name in (("true", "graph"), ("false", "eager")):
+        root = os.path.join(base, name)
+        prof = epoch_profiler() if profile else None
+        mark, times, window = {}, [], {}
+
+        def on_epoch(epoch, state, loss):
+            now, counts = time.perf_counter(), kernel_counts()
+            steps = state.step - mark["step"]
+            got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+            log(17, f"{label} {name} epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
+                    f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}")
+            assert np.isfinite(loss) and got == tuple(steps * w for w in per_step), (got, steps)
+            times.append((now - mark["t"], steps))
+            if epoch == 1 and resume and name == "graph":
+                shutil.copytree(root, os.path.join(base, "resumed"))
+            if prof is not None and epoch == 1:
+                torch.cuda.synchronize()
+                prof.start()
+                window.update(t=time.perf_counter())
+            elif prof is not None and epoch == 2:
+                window.update(wall_us=(now - window["t"]) * 1e6)
+                prof.stop()
+            mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        captured, start = training.captures, kernel_counts()
+        mark.update(t=time.perf_counter(), counts=start, step=0)
+        state, losses = main([*argv, *driver_args(seed, root, f"train.epochs={epochs}",
+                                                   "train.save_every=1",
+                                                   f"train.scan_epoch={scan}")],
+                             callback=on_epoch)
+        captured = training.captures - captured
+        launches = dict(zip(COUNTERS, (b - a for a, b in zip(start, kernel_counts()))))
+        assert captured == (name == "graph"), (name, captured)  # one graph, kept across epochs
+        numbers = dict(peak=torch.cuda.max_memory_allocated() / 2**20, losses=losses,
+                       launches=launches,
+                       rate=batch_size * times[1][1] / times[1][0] if epochs > 1 else None)
+        if prof is not None:
+            numbers["busy"] = report_profile(prof, window["wall_us"], 1,
+                                             f"{label} {name}, epoch 3", top=8, phase=17)
+        out[name], states[name] = numbers, state
+        log(17, f"{label} {name}: losses {losses}; peak memory {numbers['peak']:.0f} MiB"
+                + (f"; epoch 2 {numbers['rate']:.1f} samples/s" if epochs > 1 else ""))
+    same = out["graph"]["losses"] == out["eager"]["losses"] and _same_state(states["graph"],
+                                                                           states["eager"])
+    log(17, f"{label}: graph against the step loop, parameters, AdamW state, step, generator "
+            f"and losses bitwise equal {same} (max-abs difference over max |param| "
+            f"{_params_rel(states['graph'].model, states['eager'].model):.3e})")
+    assert same, label
+    if resume:
+        state, losses = main([*argv, *driver_args(seed, os.path.join(base, "resumed"),
+                                                   f"train.epochs={epochs}", "train.resume=true",
+                                                   "train.save_every=1")])
+        bitwise = losses == out["graph"]["losses"] and _same_state(state, states["graph"])
+        log(17, f"{label}: the graph run's epoch-2 checkpoint resumed to {epochs} under the "
+                f"graph: losses {losses}, bitwise the run {bitwise}")
+        assert bitwise, label
+    return out
+
+
+def graph_step_pair(seed, precision, remat):
+    """bench.py's B = 192 m-IWAE step (K = 2, dropout 0.1, AdamW 1e-4, clip
+    10) at ``precision`` with VAESNE_REMAT=``remat``, as make_scan_epoch
+    epochs of GRAPH_STEPS steps over GRAPH_STEPS·192 events, the graph
+    against the step loop from the same weights: launches per step as
+    train_step_prediction, epoch 2's samples/s (host clock, ending in the
+    epoch's one sync), epoch 3's busy share, peak memory, and the two runs
+    bitwise equal. Returns {"graph": numbers, "eager": numbers}."""
+    data = to_device(make_batch(GRAPH_STEPS * B_TRAIN, seed + 11), torch.device("cuda"))
+    want = train_step_prediction(B_TRAIN, DROPOUT, remat=remat == "1")
+    out, states = {}, {}
+    for graph, name in ((True, "graph"), (False, "eager")):
+        with switch("VAESNE_REMAT", remat):
+            model = flagship(seed)
+        opt = adamw(LR)
+        state = TrainState.create(model, opt, seed=seed)
+        run = training.make_scan_epoch(model, opt, m_iwae_loss, precision=precision, graph=graph)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        numbers, prof = {}, epoch_profiler()
+        for epoch in range(GRAPH_EPOCHS):
+            before = kernel_counts()
+            if epoch == 2:
+                prof.start()
+            t0 = time.perf_counter()
+            state, loss = run(state, data, torch.Generator().manual_seed(epoch), B_TRAIN)
+            wall = time.perf_counter() - t0
+            got = tuple(b - a for a, b in zip(before, kernel_counts()))
+            assert np.isfinite(loss) and got == tuple(GRAPH_STEPS * w for w in want), (got, want)
+            if epoch == 1:
+                numbers["rate"] = GRAPH_STEPS * B_TRAIN / wall
+            elif epoch == 2:
+                prof.stop()
+                numbers["busy"] = report_profile(
+                    prof, wall * 1e6, GRAPH_STEPS, f"B = {B_TRAIN} step {precision} "
+                    f"VAESNE_REMAT={remat} {name}", top=6, phase=17)
+        numbers["peak"] = torch.cuda.max_memory_allocated() / 2**20
+        out[name], states[name] = numbers, state
+        log(17, f"(c) B = {B_TRAIN} step, {precision}, VAESNE_REMAT={remat}, {name}: "
+                f"{numbers['rate']:.1f} samples/s (epoch 2, {GRAPH_STEPS} steps), busy "
+                f"{numbers['busy']:.1%} of epoch 3, peak memory {numbers['peak']:.0f} MiB; "
+                f"launches per step {dict(zip(COUNTERS, want))}")
+        del model, opt, run
+        torch.cuda.empty_cache()
+    same = _same_state(states["graph"], states["eager"])
+    log(17, f"(c) B = {B_TRAIN} step, {precision}, VAESNE_REMAT={remat}: graph against the "
+            f"step loop bitwise equal {same} after {GRAPH_EPOCHS} epochs")
+    assert same
+    return out
+
+
+def phase_graph(seed):
+    """Phase 17: train.scan_epoch, one CUDA graph of the train step per
+    geometry, replayed at every step after a warm-up step, against the step
+    loop (train.scan_epoch=false), bitwise: (a) the flagship driver
+    (train_photospectra, B = 16, K = 2, dropout 0.1, 25 steps an epoch) in
+    fp32 over GRAPH_EPOCHS epochs, its epoch-2 checkpoint resumed under the
+    graph, then in bf16 and with train.accum_steps=2, every epoch's
+    launches phase 10's prediction; (b) train_image (fp32, then a bf16 run
+    resumed from its epoch-2 checkpoint), train_contrastive (the defaults,
+    then model.selfattn=true) and a frozen-backbone train_regression; (c)
+    samples/s, busy share and peak memory of graph and step loop for the
+    B = 16 driver in fp32 and bf16, bench.py's B = 192 step in fp32 and bf16
+    with remat on and off, train_image and train_contrastive. Returns the
+    keys it adds to the kernels line."""
+    t_phase = time.perf_counter()
+    per_step = train_step_prediction(B_DRIVER, DROPOUT)
+    res = {}
+    res["driver fp32"] = loop_pair(seed, "(a) driver fp32", train_photospectra.main, [], per_step,
+                                   B_DRIVER, GRAPH_EPOCHS, profile=True, resume=True)
+    with switch("VAESNE_BF16", "1"):
+        res["driver bf16"] = loop_pair(seed, "(a) driver bf16", train_photospectra.main, [],
+                                       per_step, B_DRIVER, GRAPH_EPOCHS, profile=True)
+    accum = tuple(2 * w for w in train_step_prediction(B_DRIVER // 2, DROPOUT))
+    loop_pair(seed, "(a) driver accum 2", train_photospectra.main, ["train.accum_steps=2"], accum,
+              B_DRIVER, 1)
+    t_a = time.perf_counter() - t_phase
+
+    image_cfg = train_image.parse_image_cli([])[2]
+    res["image"] = loop_pair(seed, "(b) train_image", train_image.main, [],
+                             image_step_prediction(image_cfg), image_cfg.train.batch_size,
+                             GRAPH_EPOCHS, profile=True)
+    with switch("VAESNE_BF16", "1"):
+        loop_pair(seed, "(b) train_image bf16", train_image.main, [],
+                  image_step_prediction(image_cfg), image_cfg.train.batch_size, GRAPH_EPOCHS,
+                  resume=True)
+    contra = ContrastiveConfig()
+    res["contrastive"] = loop_pair(seed, "(b) train_contrastive", train_contrastive.main, [],
+                                   contrastive_step_prediction(contra), B_CONTRA, GRAPH_EPOCHS,
+                                   profile=True)
+    selfattn = parse_overrides(contra, ["model.selfattn=true"])
+    loop_pair(seed, "(b) train_contrastive selfattn", train_contrastive.main,
+              ["model.selfattn=true"], contrastive_step_prediction(selfattn), B_CONTRA, 1)
+    loop_pair(seed, "(b) train_regression frozen mmvae", train_regression.main,
+              ["modality=photometry", "backbone=mmvae", f"backbone_ckpt={EVAL_CKPT}"],
+              regression_step_prediction("photometry", "mmvae"), B_CONTRA, 1)
+    t_b = time.perf_counter() - t_phase - t_a
+
+    for precision in ("fp32", "bf16"):
+        for remat in ("1", "0"):
+            res[f"step {precision} remat {remat}"] = graph_step_pair(seed, precision, remat)
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    for name, r in res.items():
+        g, e = r["graph"], r["eager"]
+        log(17, f"(c) {name}: graph {g['rate']:.1f} against the step loop {e['rate']:.1f} "
+                f"samples/s ({g['rate'] / e['rate']:.2f}x); busy {g['busy']:.1%} against "
+                f"{e['busy']:.1%}; peak memory {g['peak']:.0f} against {e['peak']:.0f} MiB; "
+                f"on {smi}")
+    log(17, f"phase 17 took {time.perf_counter() - t_phase:.1f} s: (a) {t_a:.1f} s, (b) "
+            f"{t_b:.1f} s, (c) {t_c:.1f} s")
+    launches = res["driver fp32"]["graph"]["launches"]
+    return {"attention_fwd": {"launches_graph": launches["K1"] - launches["K1 rate>0"]},
+            **{name: {"launches_graph": launches[c]}
+               for name, c in (("attention_fwd_dropout", "K1 rate>0"), ("attention_bwd", "K2"),
+                               ("laplace_fwd", "K3"), ("laplace_bwd", "K4"))}}
+
+
 def epoch_profiler():
     """A profiler for the busy share of a driver's epoch: device activity
     alone (an epoch's host ops would cost the profiler minutes to gather,
@@ -3408,6 +3652,8 @@ def main(argv=None):
         errs[name] = max(errs[name], err)
     torch.cuda.empty_cache()
     switches_extra = phase_switches(args.seed, rate, busy, ev["events_s"])
+    torch.cuda.empty_cache()
+    graph_extra = phase_graph(args.seed)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, bound16, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -3468,7 +3714,9 @@ def main(argv=None):
     # 32-bit dropout draws (ms_w16, ms_w32, ms_bf16_w16, ms_bf16_w32), the
     # bf16 K2's dq error on Queue 3's input (queue3_dq_rel_bf16 at rate
     # 0.1, _rate0); the K1 rows and K2 also carry their bf16 bound at the
-    # ms_bf16 shape (bound_ms_bf16). The Laplace
+    # ms_bf16 shape (bound_ms_bf16); and phase 17's launches of
+    # train_photospectra's 3 epochs under the CUDA graph of the step
+    # (launches_graph; K1 rate 0: none). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -3497,7 +3745,7 @@ def main(argv=None):
              **(r[13] if len(r) > 13 else {}), **laplace_extra.get(r[0], {}),
              **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}),
              **multi_extra.get(r[0], {}), **extras_extra.get(r[0], {}),
-             **switches_extra.get(r[0], {}),
+             **switches_extra.get(r[0], {}), **graph_extra.get(r[0], {}),
              **({"bound_ms_bf16": bf16_bounds[r[0]]} if r[0] in bf16_bounds else {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

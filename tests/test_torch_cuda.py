@@ -455,3 +455,84 @@ def test_train_step_gradients_repeat_bitwise(cuda):
         grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
     differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
     assert not differ, differ
+
+
+def _graph_model():
+    kw = dict(latent_len=2, latent_dim=2, model_dim=16, ff_dim=16, num_layers=1, num_heads=2)
+    return init_params(PhotoSpecMMVAE([PhotometricVAE(num_bands=6, **kw), SpectraVAE(**kw)]),
+                       torch.Generator().manual_seed(0))
+
+
+def _counts():
+    return (attention.launches, attention.dropout_launches, attention.bwd_launches,
+            laplace.launches, laplace.bwd_launches)
+
+
+def test_graph_replays_are_the_eager_steps(cuda):
+    """make_scan_epoch's CUDA graph of a small m-IWAE step (dropout 0.1;
+    the 300-bin spectrum's decoder self-attention on K1/K2, its likelihood
+    on K3/K4), over five one-step epochs: a warm-up step, the capture and
+    its replay, then three more replays. Parameters and losses are bitwise
+    those of five eager steps of the step loop, and the launch counters
+    rise by the eager step's launches at every replay."""
+    from vaesne_tpu_torch.training import make_scan_epoch, train_epoch
+
+    batch = tuple(tuple(torch.from_numpy(a).to(cuda) for a in m) for m in _batch(4, 60, 300))
+
+    def loss_fn(m, b, s):
+        return objectives.m_iwae(m, b, K=2, seed=s)
+
+    runs = []
+    for graph in (True, False):
+        model = _graph_model()
+        opt = adamw(1e-3)
+        state = TrainState.create(model, opt, seed=0)
+        if graph:
+            epoch = make_scan_epoch(model, opt, loss_fn)
+        else:
+            step = make_train_step(model, opt, loss_fn)
+            epoch = lambda st, d, g, bs: train_epoch(st, step, d, bs, g)  # noqa: E731
+        losses, launches = [], []
+        for i in range(5):
+            before = _counts()
+            state, loss = epoch(state, batch, torch.Generator().manual_seed(i), 4)
+            losses.append(loss)
+            launches.append(tuple(b - a for a, b in zip(before, _counts())))
+        runs.append((losses, launches, [p.detach().clone() for p in model.parameters()]))
+    (g_losses, g_launches, g_params), (e_losses, e_launches, e_params) = runs
+    assert g_losses == e_losses and len(set(e_losses)) == 5
+    assert all(torch.equal(a, b) for a, b in zip(g_params, e_params))
+    assert e_launches[0][1] > 0 and e_launches[0][2] > 0 and e_launches[0][3] > 0
+    assert g_launches == e_launches and len(set(e_launches)) == 1
+
+
+def test_graph_capture_refuses_a_debug_print(cuda):
+    """elbo(debug=True) prints, a host sync no graph can capture: under a
+    capture it raises."""
+    vae = init_params(SpectraVAE(latent_len=2, latent_dim=2, model_dim=16, ff_dim=16,
+                                 num_layers=1, num_heads=2),
+                      torch.Generator().manual_seed(0)).to(cuda).eval()
+    spec = tuple(torch.from_numpy(a).to(cuda) for a in _batch(2, 60, 300)[1])
+    objectives.elbo(vae, spec, seed=1)  # warm
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="scan_epoch=false"):
+        with torch.cuda.graph(graph):
+            objectives.elbo(vae, spec, seed=1, debug=True)
+
+
+def test_a_cpu_checkpoint_resumes_on_the_card(cuda):
+    """A state saved on the CPU (AdamW not capturable, its step count on the
+    CPU) loads into the card's capturable AdamW, whose step count then
+    lives on the card, and trains on."""
+    opt = adamw(1e-3)
+    batch = _batch(4, 60, 300)
+    loss_fn = lambda m, b, s: objectives.m_iwae(m, b, K=2, seed=s)  # noqa: E731
+    cpu = TrainState.create(_graph_model(), opt, seed=0, device="cpu")
+    cpu, _ = make_train_step(cpu.model, opt, loss_fn, device="cpu")(cpu, batch)
+    card_model = _graph_model()
+    card = TrainState.create(card_model, opt, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    assert card.version == 1 and card.optimizer.param_groups[0]["capturable"]
+    assert all(s["step"].is_cuda for s in card.optimizer.state.values())
+    card, loss = make_train_step(card_model, opt, loss_fn)(card, batch)
+    assert torch.isfinite(loss) and card.step == 2

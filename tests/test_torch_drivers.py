@@ -137,9 +137,13 @@ def test_kill_and_resume_equals_an_uninterrupted_run(tmp_path):
         "PhotoSpectraMMVAEConfig"
 
 
-def test_scan_epoch_and_the_step_loop_are_one_run():
-    """make_scan_epoch is train_epoch over make_train_step: from the same
-    weights, data and seeds both give bitwise the same epoch (dropout on)."""
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_scan_epoch_and_the_step_loop_are_one_run(accum_steps):
+    """make_scan_epoch's capture-ready epoch (static batch buffers, the
+    step body a CUDA graph captures on the card, run eagerly here) and
+    train_epoch over make_train_step: from the same weights, data and
+    seeds both give bitwise the same epoch (dropout on): parameters, AdamW
+    moments and loss, with and without gradient accumulation."""
     cfg = tcfg.parse_overrides(tcfg.PhotoSpectraMMVAEConfig(), TINY)
     data = multimodal_tuple(make_goldstein_like(n=24, seed=0, spectrum_bins=48,
                                                 photometry_length=16), device="cpu")
@@ -155,15 +159,19 @@ def test_scan_epoch_and_the_step_loop_are_one_run():
         m = copy.deepcopy(model)
         state = TrainState.create(m, opt, seed=1, device="cpu")
         if scan:
-            epoch = make_scan_epoch(m, opt, loss_fn, device="cpu")
+            epoch = make_scan_epoch(m, opt, loss_fn, accum_steps, device="cpu")
             runs.append(epoch(state, data, torch.Generator().manual_seed(2), 8))
         else:
-            step = make_train_step(m, opt, loss_fn, device="cpu")
+            step = make_train_step(m, opt, loss_fn, accum_steps, device="cpu")
             runs.append(train_epoch(state, step, data, 8, torch.Generator().manual_seed(2)))
     (scan_state, scan_loss), (loop_state, loop_loss) = runs
     assert scan_state.step == loop_state.step == 3 and scan_loss == loop_loss
     for a, b in zip(_params(scan_state), _params(loop_state)):
         assert torch.equal(a, b)
+    moments = [(x, y) for sa, sb in zip(scan_state.optimizer.state.values(),
+                                        loop_state.optimizer.state.values())
+               for x, y in zip(sa.values(), sb.values())]
+    assert moments and all(torch.equal(x, y) for x, y in moments)
 
 
 def test_resume_geometry_checks(tmp_path):

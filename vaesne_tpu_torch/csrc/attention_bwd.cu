@@ -82,7 +82,9 @@ struct QueryStager {
   const T *qb, *db;  // this (row, head)'s queries and output gradients, rows e apart
   const float *row_max, *row_sum, *delta;  // this (row, head)'s statistics
   int lq, e, tid, nthreads;
-  uint32_t seed;
+  // the launch's seed word (a graph rewrites it), read where each chunk's
+  // hash rows are made: an L1 hit that holds no register across the loop
+  const uint32_t* seed_word;
   long long r;
   int h, num_heads, drop_tile;
   float drop_scale;
@@ -108,7 +110,7 @@ struct QueryStager {
     sm.m[st][tid] = side_m;
     sm.il[st][tid] = side_l > 0.f ? drop_scale / side_l : 0.f;
     sm.d[st][tid] = side_d / drop_scale;
-    if (DROP) sm.hrow[st][tid] = hash_row(seed, r, h, num_heads, i0 + tid, drop_tile);
+    if (DROP) sm.hrow[st][tid] = hash_row(__ldg(seed_word), r, h, num_heads, i0 + tid, drop_tile);
   }
   __device__ __forceinline__ bool split(int st) {
     if (Mma<T>::PARTS == 1) return false;
@@ -145,7 +147,8 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ row_max, const float* __restrict__ row_sum,
                      float* __restrict__ delta, float* __restrict__ dq_acc,
                      T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int lq,
-                     int lk, int num_heads, float q_scale, uint32_t seed, uint32_t threshold,
+                     int lk, int num_heads, float q_scale,
+                     const uint32_t* __restrict__ seed_word, uint32_t threshold,
                      int drop_tile, float drop_scale) {
   using MM = Mma<T>;
   using Stager = QueryStager<T, DH, DROP>;
@@ -188,7 +191,7 @@ attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < lq * DH; i += nthreads) acc_q[i] = 0.f;
   if (DH < 8) zero_shared(ksm, MM::PARTS * LOK);
   Stager sg{sm, q + qbase, dout + qbase, row_max + sb, row_sum + sb, delta + sb, lq, e, tid,
-            nthreads, seed, r, h, num_heads, drop_tile, drop_scale, 0.f, 0.f, 0.f};
+            nthreads, seed_word, r, h, num_heads, drop_tile, drop_scale, 0.f, 0.f, 0.f};
   if (DH < 8) sg.clear();
   __syncthreads();  // D and the zeroed accumulator are visible to the block
 
@@ -369,8 +372,8 @@ template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* mask, const void* o,
            const void* dout, const float* row_max, const float* row_sum, float* delta,
            float* dq_acc, void* dq, void* dk, void* dv, long long rows, int lq, int lk,
-           int num_heads, uint32_t seed, uint32_t threshold, int full_hash, float drop_scale,
-           cudaStream_t stream) {
+           int num_heads, const uint32_t* seed, uint32_t threshold, int full_hash,
+           float drop_scale, cudaStream_t stream) {
   const int warps = max(Head<DH>::MIN_THREADS / 32, min(MAX_WARPS, (lk + 15) / 16));
   const long long blocks = rows * num_heads;
   if (blocks < 1 || blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -397,8 +400,8 @@ template <typename T>
 int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const void* mask,
                 const void* o, const void* dout, const float* row_max, const float* row_sum,
                 float* delta, float* dq_acc, void* dq, void* dk, void* dv, long long rows,
-                int lq, int lk, int num_heads, uint32_t seed, uint32_t threshold, int full_hash,
-                float drop_scale, cudaStream_t stream) {
+                int lq, int lk, int num_heads, const uint32_t* seed, uint32_t threshold,
+                int full_hash, float drop_scale, cudaStream_t stream) {
 #define VAESNE_LAUNCH(DH)                                                                   \
   launch<T, DH>(q, k, v, mask, o, dout, row_max, row_sum, delta, dq_acc, dq, dk, dv, rows, \
                 lq, lk, num_heads, seed, threshold, full_hash, drop_scale, stream)
@@ -417,7 +420,9 @@ int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout and the gradients);
 // row_max, row_sum, delta and the dq accumulator dq_acc are fp32, [R, H, Lq]
 // and [R, H, Lq, Dh] (delta and dq_acc are scratch the kernel overwrites).
-// threshold is the keep threshold thr32 of attention_common.cuh (0 turns the
+// seed points to the dropout seed, one uint32 in device memory, read only when
+// dropout is on (it may be null at rate 0). threshold is the keep threshold
+// thr32 of attention_common.cuh (0 turns the
 // dropout mask off), full_hash 1 at width 32; drop_scale is 1/(1 - rate). Every
 // pointer is 16-byte aligned. Returns the cudaError_t of the launch (0 on
 // success), asynchronous on `stream`.
@@ -426,9 +431,11 @@ extern "C" int vaesne_attention_bwd(const void* q, const void* k, const void* v,
                                     const void* row_max, const void* row_sum, void* delta,
                                     void* dq_acc, void* dq, void* dk, void* dv, long long rows,
                                     int lq, int lk, int num_heads, int head_dim, int dtype,
-                                    uint32_t seed, uint32_t threshold, int full_hash,
+                                    const void* seed_word, uint32_t threshold, int full_hash,
                                     float drop_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* seed = static_cast<const uint32_t*>(seed_word);
+  if (threshold != 0 && seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const float* m = static_cast<const float*>(row_max);
   const float* l = static_cast<const float*>(row_sum);
   float* d = static_cast<float*>(delta);

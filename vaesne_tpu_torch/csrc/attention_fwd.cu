@@ -115,8 +115,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
                      T* __restrict__ out, float* __restrict__ row_max,
                      float* __restrict__ row_sum, int lq, int lk, int num_heads,
-                     int n_tiles, float q_scale, uint32_t seed, uint32_t threshold,
-                     int drop_tile, float out_scale) {
+                     int n_tiles, float q_scale, const uint32_t* __restrict__ seed_word,
+                     uint32_t threshold, int drop_tile, float out_scale) {
   using MM = Mma<T>;
   using Stager = KeyStager<T, DH>;
   constexpr int NC = Head<DH>::NC, S = Head<DH>::STRIDE, CH = Stager::CH;
@@ -154,6 +154,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   uint32_t hrow0 = 0, hrow1 = 0;
   if (DROP) {
+    const uint32_t seed = __ldg(seed_word);  // one word for the launch (a graph rewrites it)
     hrow0 = hash_row(seed, r, h, num_heads, q0 + g, drop_tile);
     hrow1 = hash_row(seed, r, h, num_heads, q0 + g + 8, drop_tile);
   }
@@ -258,7 +259,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out,
            float* row_max, float* row_sum, long long rows, int lq, int lk, int num_heads,
-           uint32_t seed, uint32_t threshold, int full_hash, float out_scale,
+           const uint32_t* seed, uint32_t threshold, int full_hash, float out_scale,
            cudaStream_t stream) {
   const int warps = max(Head<DH>::MIN_THREADS / 32, min(MAX_WARPS, (lq + 15) / 16));
   const int n_tiles = (lq + 16 * warps - 1) / (16 * warps);
@@ -279,7 +280,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 template <typename T>
 int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const void* mask,
                 void* out, float* row_max, float* row_sum, long long rows, int lq, int lk,
-                int num_heads, uint32_t seed, uint32_t threshold, int full_hash,
+                int num_heads, const uint32_t* seed, uint32_t threshold, int full_hash,
                 float out_scale, cudaStream_t stream) {
 #define VAESNE_LAUNCH(DH)                                                                   \
   launch<T, DH>(q, k, v, mask, out, row_max, row_sum, rows, lq, lk, num_heads, seed,      \
@@ -297,7 +298,9 @@ int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. row_max/row_sum: fp32 [R, H, Lq] or
-// both null. threshold is the keep threshold thr32 of attention_common.cuh
+// both null. seed points to the dropout seed, one uint32 in device memory,
+// read only when dropout is on (it may be null at rate 0). threshold is the
+// keep threshold thr32 of attention_common.cuh
 // (0 turns dropout off: the rate-0 kernel), full_hash 1 at width 32; out_scale
 // is 1/(1 - rate). Every pointer is 16-byte aligned. Returns the
 // cudaError_t of the launch (0 on success); the launch is asynchronous on
@@ -305,10 +308,12 @@ int dispatch_dh(int head_dim, const void* q, const void* k, const void* v, const
 extern "C" int vaesne_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, void* row_max,
                                     void* row_sum, long long rows, int lq, int lk,
-                                    int num_heads, int head_dim, int dtype, uint32_t seed,
-                                    uint32_t threshold, int full_hash, float out_scale,
-                                    void* stream) {
+                                    int num_heads, int head_dim, int dtype,
+                                    const void* seed_word, uint32_t threshold, int full_hash,
+                                    float out_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* seed = static_cast<const uint32_t*>(seed_word);
+  if (threshold != 0 && seed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   float* m = static_cast<float*>(row_max);
   float* l = static_cast<float*>(row_sum);
   if ((m == nullptr) != (l == nullptr)) return static_cast<int>(cudaErrorInvalidValue);

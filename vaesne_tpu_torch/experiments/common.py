@@ -207,7 +207,12 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     checkpoint holds them beside AdamW moments for the rest alone.
     ``init_K`` has no effect here: the
     port's parameters do not depend on K (the JAX package initialises by
-    running the model with it).
+    running the model with it). ``train.scan_epoch`` (default true) runs
+    each epoch as one CUDA graph of the step on the card, replayed at every
+    step after a warm-up step and kept across epochs (the capture-ready step
+    eagerly on the CPU); false runs the step loop, the same run bitwise.
+    Augmentation, the save, ``callback`` and the progress record stay
+    outside the graph, and a save between epochs reads the live weights.
 
     Every ``train.save_every`` epochs and at the last epoch the state, the
     config (tagged with its class), ``losses.npy`` and ``progress.json`` go
@@ -307,9 +312,12 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
             shard_state_tp(state, mesh)  # checks every attention's head count
         if log:
             print(f"training on {mesh.size} ranks (mesh {mesh.shape}, {mesh.backend})")
-    # train.scan_epoch picks the JAX package's program; here both are this loop
+    if train_cfg.scan_epoch and mesh is not None and log:
+        print("train.scan_epoch: the step loop runs under a mesh (no CUDA graph of a "
+              "data-parallel step)")
     epoch_fn = make_scan_epoch(model, opt, loss_fn, train_cfg.accum_steps,
-                               train_cfg.accum_reduction, device, mesh=mesh)
+                               train_cfg.accum_reduction, device, mesh=mesh,
+                               graph=train_cfg.scan_epoch)
     if train_cfg.parity and augment_fn is not None:
         train_data = augment_fn(device_generator(fold_in(seed, 3), device), train_data)
         augment_fn = None

@@ -80,6 +80,20 @@ def autocast(precision: str, device=None):
     return stack
 
 
+@contextlib.contextmanager
+def no_autocast_cache():
+    """Autocast casts a weight anew at each use inside the block, as a CUDA
+    graph's capture requires (cached casts would outlive the capture); the
+    values are the same. An ``autocast`` entered inside the block takes the
+    setting, and remat's re-run takes its forward's."""
+    before = torch.is_autocast_cache_enabled()
+    torch.set_autocast_cache_enabled(False)
+    try:
+        yield
+    finally:
+        torch.set_autocast_cache_enabled(before)
+
+
 def remat_default() -> bool:
     """``TransformerStack``'s remat where none is given: the JAX package's
     parse of ``VAESNE_REMAT`` (``os.environ.get("VAESNE_REMAT", "1") !=

@@ -60,7 +60,10 @@ def elbo(model, x, K: int = 1, *, seed: int, debug: bool = False) -> torch.Tenso
     """E[log p(x|z)]·llik_scaling − KL(q‖p), averaged over K and batch, for
     one modality VAE; ``x[0]`` is the observed grid. ``debug`` prints the
     terms as the JAX package does, ``kl: <mean KL>, llk: <−mean log-lik>``
-    (a host sync)."""
+    (a host sync, so it raises inside a CUDA graph's capture)."""
+    if debug and torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("elbo(debug=True) prints, a host sync that a CUDA graph cannot "
+                           "capture: train with train.scan_epoch=false to print the terms")
     generator, drop = _rngs(model, x, seed)
     qz_x, px_z, _ = model(x, K, generator=generator, seed=drop)
     lpx_z = grid_loglik(px_z, x[0]) * model.total_llik_scaling  # [K, B]

@@ -37,11 +37,14 @@ qt = min(1024, max(128, ⌈Lq/128⌉·128)),
 so the keep probability is quantised to a multiple of 1/2ʷ (230/256 at rate
 0.1 and w = 8), while the kept weights are rescaled by 1/(1 − rate) exactly,
 as in the JAX package. The kernels take the threshold shifted to 32 bits,
-round(2ʷ·rate)·2³²⁻ʷ, and compare the hash with it. A forward keeps the
-width it ran at for its backward, and ``TransformerStack``'s rematerialised
-re-run takes the forward's too (``pin_dropout_bits``), so a change of the
-environment between them cannot change a mask. ``dropout_keep`` is the
-plain version of the same function.
+round(2ʷ·rate)·2³²⁻ʷ, and compare the hash with it. They read the seed from
+a uint32 word in device memory (``utils.rng.seed_word``), not from a launch
+argument, so a CUDA graph of the train step (``training.make_scan_epoch``)
+draws each replayed step's mask: the host rewrites the word before a
+replay. A forward keeps the width it ran at for its backward, and
+``TransformerStack``'s rematerialised re-run takes the forward's too
+(``pin_dropout_bits``), so a change of the environment between them cannot
+change a mask. ``dropout_keep`` is the plain version of the same function.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
 versions (``attention_reference``, ``attention_stats_reference``,
@@ -56,11 +59,14 @@ import ctypes
 import math
 import os
 import threading
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
+from ..utils.rng import seed_of, seed_word
 from . import _build
+
+Seed = Union[int, torch.Tensor]  # an int, or a seed word on the tensors' device
 
 launches = 0          # K1 launches (any rate) since the last reset
 dropout_launches = 0  # K1 launches at a dropout rate > 0
@@ -130,18 +136,20 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return ((hi << 16) + (x & 0xFFFF) * c) & _M32
 
 
-def dropout_keep(seed: int, rows: int, num_heads: int, lq: int, lk: int, rate: float,
+def dropout_keep(seed: Seed, rows: int, num_heads: int, lq: int, lk: int, rate: float,
                  device=None, bits: Optional[int] = None) -> torch.Tensor:
     """The kernels' keep mask, bool [rows, H, Lq, Lk], as plain int64 tensor
     arithmetic (see the module docstring), at draw width ``bits`` (None:
-    ``dropout_bits()``)."""
+    ``dropout_bits()``). ``seed`` is an int or the kernels' seed word
+    (``utils.rng.seed_word``), read on the device without a host sync."""
     w = dropout_bits() if bits is None else bits
     qt = hash_tile(lq)
     i64 = dict(dtype=torch.int64, device=device)
     r = torch.arange(rows, **i64).view(-1, 1, 1)
     h = torch.arange(num_heads, **i64).view(1, -1, 1)
     q = torch.arange(lq, **i64).view(1, 1, -1)
-    block_seed = (seed + (r * num_heads + h) * 1024 + (q // qt) * (qt // 128)) & _M32
+    block_seed = (seed_of(seed, device) + (r * num_heads + h) * 1024
+                  + (q // qt) * (qt // 128)) & _M32
     row = _mul32(block_seed, _C_SEED) ^ _mul32(q % qt + 1, _C_ROW)
     col = _mul32(torch.arange(1, lk + 1, **i64), _C_COL)
     x = row[..., None] ^ col
@@ -182,12 +190,12 @@ def attend(weights: torch.Tensor, v: torch.Tensor, num_heads: int) -> torch.Tens
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_padding_mask: Optional[torch.Tensor], num_heads: int,
-                        dropout: float = 0.0, seed: Optional[int] = None,
+                        dropout: float = 0.0, seed: Optional[Seed] = None,
                         bits: Optional[int] = None) -> torch.Tensor:
     """The plain version: einsum, −1e9 mask bias, softmax, dropout of the
     weights with ``dropout_keep`` at width ``bits`` (rescaled by
     1/(1 − rate)), einsum, over ``[R, L, E]`` (dropout needs exactly one
-    leading axis)."""
+    leading axis). ``seed`` is an int or a seed word."""
     weights = attention_weights(q, k, key_padding_mask, num_heads)
     if dropout > 0.0:
         if seed is None:
@@ -207,7 +215,7 @@ def attention_stats_reference(q, k, key_padding_mask, num_heads):
 
 
 def attention_backward_reference(q, k, v, key_padding_mask, dout, num_heads,
-                                 dropout: float = 0.0, seed: Optional[int] = None,
+                                 dropout: float = 0.0, seed: Optional[Seed] = None,
                                  bits: Optional[int] = None):
     """The plain version of K2: (dq, dk, dv) by autograd through
     ``attention_reference``."""
@@ -256,16 +264,22 @@ def _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed):
 
 
 _p, _i, _u, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_FWD_ARGS = (_p,) * 7 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _u, _i, _f, _p)
-_BWD_ARGS = (_p,) * 13 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _u, _u, _i, _f, _p)
+_FWD_ARGS = (_p,) * 7 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _p, _u, _i, _f, _p)
+_BWD_ARGS = (_p,) * 13 + (ctypes.c_longlong, _i, _i, _i, _i, _i, _p, _u, _i, _f, _p)
 
 
-def _dropout_args(rate, seed, bits):
-    """(seed as uint32, the keep threshold shifted to 32 bits, 1 where the
-    width is 32 (the hash's last step then counts), 1/(1 − rate)) for the
-    kernels."""
-    return ((0 if seed is None else seed & _M32), drop_threshold(rate, bits) << (32 - bits),
-            int(bits == 32), 1.0 / (1.0 - rate))
+def _dropout_args(rate, word, bits):
+    """(the seed word's address, or 0 at rate 0, where the kernels read no
+    seed; the keep threshold shifted to 32 bits; 1 where the width is 32
+    (the hash's last step then counts); 1/(1 − rate)) for the kernels."""
+    return (_ptr(word), drop_threshold(rate, bits) << (32 - bits), int(bits == 32),
+            1.0 / (1.0 - rate))
+
+
+def _word(rate, seed, device) -> Optional[torch.Tensor]:
+    """The kernels' seed word at a dropout rate > 0 (``seed_word``), else
+    None."""
+    return seed_word(seed, device) if rate > 0.0 else None
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
@@ -280,12 +294,13 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         key_padding_mask: Optional[torch.Tensor], num_heads: int,
-                        dropout_rate: float = 0.0, seed: Optional[int] = None,
+                        dropout_rate: float = 0.0, seed: Optional[Seed] = None,
                         stats: bool = True, bits: Optional[int] = None):
     """K1: (out [R, Lq, E] in q's dtype, m, l) with m, l the fp32 row max
     and row sum [R, H, Lq] of the exp2-domain logits (None unless
     ``stats``), its dropout drawn at width ``bits`` (None:
-    ``dropout_bits()``). Launches on the current stream without
+    ``dropout_bits()``) from ``seed``, an int or a seed word, which the
+    kernel reads from device memory. Launches on the current stream without
     synchronising."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
     bits = dropout_bits() if bits is None else bits
@@ -305,10 +320,11 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if R == 0 or lq == 0:
         return out, m, l
     fn = _build.function("attention_fwd", "vaesne_attention_fwd", _FWD_ARGS)
+    word = _word(dropout_rate, seed, q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), _ptr(m), _ptr(l), R, lq, k.shape[1], num_heads,
-                e // num_heads, _DTYPE_CODES[q.dtype], *_dropout_args(dropout_rate, seed, bits),
+                e // num_heads, _DTYPE_CODES[q.dtype], *_dropout_args(dropout_rate, word, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_fwd")
     global launches, dropout_launches
@@ -319,7 +335,7 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
                         num_heads: int, dropout_rate: float = 0.0,
-                        seed: Optional[int] = None,
+                        seed: Optional[Seed] = None,
                         bits: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """K2: (dq, dk, dv) in q's dtype, from the forward's inputs, its output
     ``out`` and statistics, and the output gradient ``dout``, with the
@@ -348,12 +364,13 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
     delta = torch.empty_like(row_max)
     dq_acc = torch.empty(R, num_heads, lq, hd, dtype=torch.float32, device=q.device)
     fn = _build.function("attention_bwd", "vaesne_attention_bwd", _BWD_ARGS)
+    word = _word(dropout_rate, seed, q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
                 delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
-                *_dropout_args(dropout_rate, seed, bits),
+                *_dropout_args(dropout_rate, word, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_bwd")
     global bwd_launches
@@ -363,7 +380,7 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
 
 class _FusedAttention(torch.autograd.Function):
     """K1 forward, K2 backward. The statistics and the output ride along as
-    saved tensors, the dropout width in the context; under
+    saved tensors, the dropout width and seed word in the context; under
     ``torch.utils.checkpoint`` the forward re-runs in the backward with the
     same seed and width, so it regenerates the same mask."""
 
@@ -386,10 +403,13 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_padding_mask: Optional[torch.Tensor], num_heads: int,
-                    dropout_rate: float = 0.0, seed: Optional[int] = None) -> torch.Tensor:
+                    dropout_rate: float = 0.0, seed: Optional[Seed] = None) -> torch.Tensor:
     """softmax(q_h k_hᵀ/√Dh + bias) v_h for every head h, fused, with
-    attention-weight dropout at ``dropout_rate`` (which needs ``seed``; the
-    same seed gives the same mask).
+    attention-weight dropout at ``dropout_rate`` (which needs ``seed``, an
+    int or a seed word; the same seed gives the same mask). At a rate > 0
+    the seed becomes a word on q's device (``utils.rng.seed_word``: under a
+    CUDA graph's capture the graph's word, which each replay rewrites) that
+    the plain version and both kernels read.
 
     q [R, Lq, E]; k, v [R, Lk, E]; ``key_padding_mask`` bool [R, Lk]
     (True = ignore) or None. Returns [R, Lq, E] in q's dtype (float32 or
@@ -399,6 +419,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dropout draws have the width ``dropout_bits()`` gives at this call."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
     bits = dropout_bits()
+    seed = _word(dropout_rate, seed, q.device)
     if q.device.type == "cpu":
         return attention_reference(q, k, v, key_padding_mask, num_heads, dropout_rate, seed,
                                    bits)

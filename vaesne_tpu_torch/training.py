@@ -14,7 +14,10 @@ counterpart of the JAX ``loss_fn(model, variables, batch, key)``: the model
 holds its parameters, and ``seed`` is an integer drawn per step from the
 state's CPU generator (``utils.rng``). The entry points run on ``"cuda"``
 unless the caller passes ``device="cpu"``, and raise when no card is
-present. The step runs eagerly: a CUDA graph of the step is later work.
+present. ``make_scan_epoch`` runs an epoch as the JAX package's one scanned
+program runs it: on the card every step after a warm-up step is a replay of
+one CUDA graph of the step, whose random draws follow each step's seed
+(``utils.rng.SeedTape``).
 """
 
 from __future__ import annotations
@@ -22,17 +25,21 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Any, Callable, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 from torch import nn
 
-from .nn.layers import autocast, cudnn_fp32_deterministic, resolve_precision
-from .ops import partition
-from .utils.rng import draw_seed, fold_in
+from .nn.layers import (TransformerStack, autocast, cudnn_fp32_deterministic, no_autocast_cache,
+                        resolve_precision)
+from .ops import counters, dropout_bits, partition
+from .utils.rng import SeedTape, StepSeed, draw_seed, fold_in, recording, word_value
 
 LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
+
+captures = 0  # CUDA graphs of the step captured since import (make_scan_epoch)
 
 
 def safelog10(x: float) -> float:
@@ -64,8 +71,13 @@ class AdamW:
     grad_clip: Optional[float] = 10.0
 
     def init(self, params) -> torch.optim.AdamW:
+        """The torch optimizer over ``params``: ``capturable`` on the card
+        (its step count and bias corrections stay on the device), so the step
+        loop and the CUDA graph of the step run one update, bitwise."""
+        params = list(params)
         return torch.optim.AdamW(params, lr=self.lr, betas=(self.b1, self.b2), eps=self.eps,
-                                 weight_decay=self.weight_decay)
+                                 weight_decay=self.weight_decay,
+                                 capturable=any(p.is_cuda for p in params))
 
 
 def adamw(lr: float, weight_decay: float = 1e-2, b1: float = 0.9, b2: float = 0.999,
@@ -96,12 +108,16 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
 @dataclasses.dataclass
 class TrainState:
     """Everything a step mutates: the model (its parameters), the torch
-    optimizer, the step count and the CPU generator that seeds each step."""
+    optimizer, the step count and the CPU generator that seeds each step.
+    ``version`` counts the restores (``load_state_dict``), which replace the
+    optimizer's tensors: a CUDA graph of the step is captured anew after
+    one."""
 
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     generator: torch.Generator
+    version: int = 0
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: AdamW, seed: int = 0,
@@ -141,17 +157,24 @@ class TrainState:
 
     def load_state_dict(self, state: dict) -> None:
         """Restore ``state_dict()`` output. The optimizer keeps its own
-        hyperparameters (learning rate, betas, weight decay), as the JAX
-        package's optimizer state holds none: a resumed run trains with the
-        configuration it is given."""
+        hyperparameters (learning rate, betas, weight decay, capturable), as
+        the JAX package's optimizer state holds none: a resumed run trains
+        with the configuration it is given, and a state saved on the CPU
+        resumes on the card and the other way round."""
         self.model.load_state_dict(state["model"])
         hyper = [{k: v for k, v in g.items() if k != "params"}
                  for g in self.optimizer.param_groups]
         self.optimizer.load_state_dict(state["optimizer"])
         for group, h in zip(self.optimizer.param_groups, hyper):
             group.update(h)
+            if group.get("capturable"):  # the step count lives beside its parameter
+                for p in group["params"]:
+                    slot = self.optimizer.state.get(p, {})
+                    if "step" in slot:
+                        slot["step"] = slot["step"].to(p.device, torch.float32)
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
+        self.version += 1
 
 
 def _tree_map(fn, tree):
@@ -259,27 +282,13 @@ def _global_norm(state: "TrainState", grads, shard) -> Optional[torch.Tensor]:
     return torch.sqrt(sq[0] + sq[1])
 
 
-def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
-                    accum_steps: int = 1, accum_reduction: str = "mean", device=None,
-                    precision: Optional[str] = None, mesh=None):
-    """The train step ``step(state, batch) -> (state, loss)``: gradients of
-    ``-loss_fn`` (accumulated over ``accum_steps`` microbatches when > 1),
-    the global-norm clip, then the AdamW update. ``batch`` is moved to
-    ``device`` (default: the card). ``precision="bf16"`` runs the forward
-    under bf16 autocast over the fp32 weights, whose AdamW moments stay fp32
-    (the JAX package's ``VAESNE_BF16``); None takes ``VAESNE_BF16`` as it
-    stands when the step is built (``nn.layers.resolve_precision``). The
-    loss stays on the device.
-
-    ``mesh`` (a ``parallel`` mesh this process is a rank of): the step
-    takes the global batch and runs this rank's slice of it under DDP over
-    the data group; ``accum_reduction`` names the objective's batch
-    reduction, so the gradients and the returned loss are the global
-    batch's (summed for ``"sum"``, averaged for ``"mean"``). The clip's
-    norm is taken after the gradient all-reduce, over the whole gradient
-    of a tensor-parallel model."""
-    device = resolve_device(device)
-    precision = resolve_precision(precision)
+def _step_body(model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
+               accum_reduction: str, device: torch.device, precision: str, mesh):
+    """The step's device work, ``body(state, batch, seed) -> loss``: zero the
+    gradients, the (accumulated) backward of ``-loss_fn`` under bf16 autocast
+    where ``precision`` asks for it, the clip and the AdamW update. It makes
+    no host sync and keeps no host state, so without a mesh a CUDA graph can
+    capture it (``make_scan_epoch``)."""
     shard = None
     if mesh is not None:
         from .parallel.mesh import shard_batch, shard_of
@@ -301,11 +310,7 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
         ddp = wrapped[0]
         return (lambda m, b, seed: ddp(shard_batch(b, mesh), seed)), ddp.no_sync
 
-    def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
-        if state.model is not model:
-            raise ValueError("the state holds another model than this step")
-        seed = draw_seed(state.generator)
-        batch = to_device(batch, device)
+    def body(state: TrainState, batch, seed: int) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)
         fn, no_sync = objective()
         # the convolutions' backward reads the cuDNN flags, remat's re-runs
@@ -329,6 +334,38 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
             clip_by_global_norm([g for _, g in grads], optimizer.grad_clip,
                                 _global_norm(state, grads, shard))
         state.optimizer.step()
+        return loss
+
+    return body
+
+
+def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
+                    accum_steps: int = 1, accum_reduction: str = "mean", device=None,
+                    precision: Optional[str] = None, mesh=None):
+    """The train step ``step(state, batch) -> (state, loss)``: gradients of
+    ``-loss_fn`` (accumulated over ``accum_steps`` microbatches when > 1),
+    the global-norm clip, then the AdamW update. ``batch`` is moved to
+    ``device`` (default: the card). ``precision="bf16"`` runs the forward
+    under bf16 autocast over the fp32 weights, whose AdamW moments stay fp32
+    (the JAX package's ``VAESNE_BF16``); None takes ``VAESNE_BF16`` as it
+    stands when the step is built (``nn.layers.resolve_precision``). The
+    loss stays on the device.
+
+    ``mesh`` (a ``parallel`` mesh this process is a rank of): the step
+    takes the global batch and runs this rank's slice of it under DDP over
+    the data group; ``accum_reduction`` names the objective's batch
+    reduction, so the gradients and the returned loss are the global
+    batch's (summed for ``"sum"``, averaged for ``"mean"``). The clip's
+    norm is taken after the gradient all-reduce, over the whole gradient
+    of a tensor-parallel model."""
+    device = resolve_device(device)
+    body = _step_body(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                      resolve_precision(precision), mesh)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("the state holds another model than this step")
+        loss = body(state, to_device(batch, device), draw_seed(state.generator))
         state.step += 1
         return state, loss
 
@@ -341,12 +378,7 @@ def epoch_batches(generator: torch.Generator, data, batch_size: int,
     leading sample axis) in an order drawn from ``generator``; the trailing
     remainder is dropped so every step has one shape. The order goes to the
     data's device once per epoch, and each step gathers its batch there."""
-    n = _leaves(data)[0].shape[0]
-    steps = n // batch_size
-    if steps == 0:
-        raise ValueError(f"batch_size {batch_size} exceeds dataset size {n}")
-    perm = torch.randperm(n, generator=generator) if shuffle else torch.arange(n)
-    perm = perm[:steps * batch_size].view(steps, batch_size)
+    perm = _epoch_order(generator, _leaves(data)[0].shape[0], batch_size, shuffle)
     placed = {}
 
     def order(a):
@@ -355,8 +387,19 @@ def epoch_batches(generator: torch.Generator, data, batch_size: int,
             placed[where] = perm.numpy() if where == "numpy" else perm.to(where)
         return placed[where]
 
-    for i in range(steps):
+    for i in range(perm.shape[0]):
         yield _tree_map(lambda a: a[order(a)[i]], data)
+
+
+def _epoch_order(generator: torch.Generator, n: int, batch_size: int,
+                 shuffle: bool = True) -> torch.Tensor:
+    """The epoch's sample order, [steps, batch_size] on the CPU: a
+    permutation drawn from ``generator`` without its trailing remainder."""
+    steps = n // batch_size
+    if steps == 0:
+        raise ValueError(f"batch_size {batch_size} exceeds dataset size {n}")
+    perm = torch.randperm(n, generator=generator) if shuffle else torch.arange(n)
+    return perm[:steps * batch_size].view(steps, batch_size)
 
 
 def train_epoch(state: TrainState, step_fn, data, batch_size: int,
@@ -372,17 +415,158 @@ def train_epoch(state: TrainState, step_fn, data, batch_size: int,
     return state, float(torch.stack(losses).mean())
 
 
+def _rebuild(tree, leaves: Iterator[torch.Tensor]):
+    """``tree``'s nesting with its leaves taken from ``leaves`` in order."""
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(t, leaves) for t in tree)
+    return next(leaves)
+
+
+class _Captured(NamedTuple):
+    """A captured step: the graph, the capture's tape, the generators and
+    seed words it draws from, its loss output and its kernel launches."""
+
+    graph: "torch.cuda.CUDAGraph"
+    tape: SeedTape
+    generators: List[torch.Generator]
+    words: torch.Tensor
+    loss: torch.Tensor
+    launches: Dict[str, int]
+
+
+class _GraphEpoch:
+    """``make_scan_epoch``'s epoch on one process, ``run(state, data,
+    generator, batch_size)``: the permutation of ``epoch_batches``, each
+    step's batch gathered into static buffers (``index_select(out=)``), the
+    step body of ``make_train_step`` on them.
+
+    On the card the first step of a geometry runs eagerly on a side stream,
+    its draw sites recorded (``utils.rng.SeedTape``); the next step captures
+    the body once as a ``torch.cuda.CUDAGraph``, and it and every later step
+    are replays: the host recomputes the sites' seeds from the step's seed,
+    re-seeds the graph's generators, writes the kernels' seed words and
+    replays. Parameters and moments update in place. A new graph is
+    captured when the batch geometry, the model's train mode, the remat
+    setting, the dropout width, the optimizer or its restore count
+    (``TrainState.version``) changes. A failed capture raises. On the CPU
+    the same body runs eagerly at every step."""
+
+    def __init__(self, model: nn.Module, body, device: torch.device):
+        self.model, self.body, self.device = model, body, device
+        self.key = None      # what the buffers, the warm-up and the graph were made for
+        self.buffers = None  # the step's batch leaves, filled in place
+        self.warm = None     # the warm-up step's tape
+        self.graph: Optional[_Captured] = None
+
+    def __call__(self, state: TrainState, data, generator: torch.Generator,
+                 batch_size: int) -> Tuple[TrainState, float]:
+        if state.model is not self.model:
+            raise ValueError("the state holds another model than this epoch function")
+        data = to_device(data, self.device)
+        leaves = _leaves(data)
+        order = _epoch_order(generator, leaves[0].shape[0], batch_size).to(self.device)
+        losses = [self._step(state, data, leaves, idx) for idx in order]
+        return state, float(torch.stack(losses).mean())
+
+    def _key(self, state: TrainState, leaves, batch_size: int):
+        remat = tuple(m.remat for m in self.model.modules() if isinstance(m, TransformerStack))
+        return (tuple((a.shape[1:], a.dtype) for a in leaves), batch_size, state.optimizer,
+                state.version, self.model.training, dropout_bits(), remat)
+
+    def _step(self, state: TrainState, data, leaves, idx: torch.Tensor) -> torch.Tensor:
+        seed = StepSeed(draw_seed(state.generator))
+        key = self._key(state, leaves, idx.numel())
+        if key != self.key:
+            self.key, self.warm, self.graph = key, None, None
+            self.buffers = [a.new_empty((idx.numel(), *a.shape[1:])) for a in leaves]
+        for a, buf in zip(leaves, self.buffers):
+            torch.index_select(a, 0, idx, out=buf)
+        if self.graph is None:
+            batch = _rebuild(data, iter(self.buffers))
+            if self.device.type != "cuda":
+                loss = self.body(state, batch, seed)
+            elif self.warm is None:
+                loss = self._warm_up(state, batch, seed)
+            else:
+                self._capture(state, batch, seed)
+        if self.graph is not None:
+            loss = self._replay(seed)
+        state.step += 1
+        return loss
+
+    def _warm_up(self, state: TrainState, batch, seed: int) -> torch.Tensor:
+        """The first step of a geometry, eager on a side stream (as torch
+        asks of a capture's warm-up), its draw sites recorded."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        tape = SeedTape()
+        with torch.cuda.stream(side), recording(tape):
+            loss = self.body(state, batch, seed)
+        main.wait_stream(side)
+        loss.record_stream(main)
+        self.warm = tape
+        return loss
+
+    def _capture(self, state: TrainState, batch, seed: int) -> None:
+        """Capture the body: a generator per generator site of the warm-up,
+        registered with the graph, and a seed word per kernel seed. The
+        capture runs no kernel, so its launches come off the counters."""
+        warm = self.warm
+        generators = [torch.Generator(device=self.device) for _ in warm.paths("generator")]
+        words = torch.zeros(len(warm.paths("word")), dtype=torch.int32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        tape = SeedTape(generators, words)
+        before = counters.launch_counts()
+        # autocast's cached casts would outlive the capture; uncached, the
+        # casts give the same values
+        with torch.cuda.graph(graph), recording(tape), no_autocast_cache():
+            loss = self.body(state, batch, seed)
+        after = counters.launch_counts()
+        counters.set_launch_counts(before)
+        if [site[:2] for site in tape.sites] != [site[:2] for site in warm.sites]:
+            raise RuntimeError("the captured step reached other draw sites than its warm-up step")
+        self.graph = _Captured(graph, tape, generators, words, loss,
+                               {name: after[name] - before[name] for name in after})
+        global captures
+        captures += 1
+
+    def _replay(self, seed: int) -> torch.Tensor:
+        g = self.graph
+        generator_seeds, word_seeds = g.tape.values(seed)
+        for generator, s in zip(g.generators, generator_seeds):
+            generator.manual_seed(s)
+        for word, s in zip(g.words.unbind(), word_seeds):  # a fill each, in stream order
+            word.fill_(word_value(s))
+        g.graph.replay()
+        counters.add_launch_counts(g.launches)
+        return g.loss.clone()
+
+
 def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                     accum_steps: int = 1, accum_reduction: str = "mean", device=None,
-                    mesh=None, precision: Optional[str] = None):
+                    mesh=None, precision: Optional[str] = None, graph: bool = True):
     """The whole-epoch train function ``run(state, data, generator,
     batch_size) -> (state, mean loss)``, the counterpart of the JAX
-    package's ``make_scan_epoch``: ``train_epoch`` over ``make_train_step``
-    at ``precision`` (None: ``VAESNE_BF16`` when the function is built).
-    The steps run eagerly and the host syncs once, for the mean loss; a
-    CUDA graph of the step is later work. Under ``mesh`` every rank draws
-    the same permutation and each step runs the rank's slice of the batch
-    (``make_train_step``)."""
+    package's ``make_scan_epoch``, at ``precision`` (None: ``VAESNE_BF16``
+    when the function is built). The host syncs once an epoch, for the mean
+    loss.
+
+    ``graph=True`` (``train.scan_epoch``, the default): on the card one CUDA
+    graph of the step, replayed at every step after a warm-up step, with
+    the same permutation, seeds and update as the step loop, bitwise
+    (``_GraphEpoch``); on the CPU the same capture-ready body eagerly.
+    ``graph=False``: ``train_epoch`` over ``make_train_step``. Under
+    ``mesh`` the step loop runs either way (gloo cannot be captured, nor is
+    DDP inside a graph here): every rank draws the same permutation and each
+    step runs the rank's slice of the batch (``make_train_step``)."""
+    if graph and mesh is None:
+        device = resolve_device(device)
+        return _GraphEpoch(model, _step_body(model, optimizer, loss_fn, accum_steps,
+                                             accum_reduction, device,
+                                             resolve_precision(precision), None), device)
     step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
                            precision, mesh)
 

@@ -43,8 +43,8 @@ class TrainConfig:
     K: int = 1
     beta: float = 1.0
     save_every: int = 5
-    # the JAX package's choice of one lax.scan per epoch; the port's
-    # train_loop runs make_scan_epoch's eager loop whatever its value
+    # one program per epoch: the JAX package's lax.scan, the port's CUDA
+    # graph of the step (training.make_scan_epoch); false: the step loop
     scan_epoch: bool = True
     # parallel.resolve_mesh: "none"/"1" one process, "N" data parallel over N
     # ranks, "DxM" with M-way tensor parallelism, "auto" every visible card
