@@ -506,6 +506,31 @@ def test_graph_replays_are_the_eager_steps(cuda):
     assert g_launches == e_launches and len(set(e_launches)) == 1
 
 
+def test_graph_of_a_world1_dp_step_is_the_ddp_step_loop(cuda):
+    """make_scan_epoch under a world-1 NCCL mesh (a spawned rank on this
+    card): the step as two CUDA graphs, the gradients and the update, with
+    the gradient all-reduce eager between their replays, over three
+    two-step epochs (a warm-up step, the capture and its replay, then
+    replays), against the DDP step loop: losses, parameters, AdamW moments,
+    step and generator bitwise equal; the 300-bin decoder's attention on
+    K1/K2 at dropout 0.1 with the rank's shard seed."""
+    import torch_dp_workers
+    from vaesne_tpu_torch.parallel import launch, make_mesh
+
+    mesh = make_mesh(["cuda:0"])
+    assert mesh.backend == "nccl"
+    out = launch(torch_dp_workers.scan_epochs, mesh, _graph_model(), _batch(8, 60, 300), 3, 4,
+                 2, "sum", 1, False, False, "cuda")
+    (g_losses, g_state, _, reason), (e_losses, e_state, _, _) = out[True], out[False]
+    assert reason is None and g_losses == e_losses and len(set(g_losses)) == 3
+    assert g_state["step"] == e_state["step"] == 6
+    assert torch.equal(g_state["generator"], e_state["generator"])
+    assert all(torch.equal(g_state["model"][k], e_state["model"][k]) for k in g_state["model"])
+    for a, b in zip(g_state["optimizer"]["state"].values(),
+                    e_state["optimizer"]["state"].values()):
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
 def test_graph_capture_refuses_a_debug_print(cuda):
     """elbo(debug=True) prints, a host sync no graph can capture: under a
     capture it raises."""

@@ -6,6 +6,7 @@ imports jax. Each returns plain tensors, arrays or lists, which rank 0
 hands back to the test."""
 
 import contextlib
+import copy
 import time
 
 import numpy as np
@@ -30,17 +31,26 @@ def noise(shape):
     return np.random.default_rng(list(shape) or [0]).laplace(size=shape).astype(np.float32)
 
 
+def shared_noise(shape):
+    """``noise`` drawn for one event and shared by every event (axis 1 of a
+    posterior draw [K, B, ...]): an event's noise does not depend on where
+    a shuffle put it."""
+    one = noise(tuple(shape[:1]) + (1,) + tuple(shape[2:]))
+    return np.ascontiguousarray(np.broadcast_to(one, shape))
+
+
 @contextlib.contextmanager
-def pinned_noise():
+def pinned_noise(shared=False):
     """Laplace draws become loc + scale·noise(the whole batch's shape), of
     which the rank keeps its events (``draw_events``): ``fixed_noise`` of
-    the parity tests, per rank."""
+    the parity tests, per rank (``shared``: ``shared_noise``)."""
     original = tdist.Laplace.sample
+    draw = shared_noise if shared else noise
 
     def sample(self, generator=None, sample_shape=()):
         shape = tdist._as_shape(sample_shape) + tuple(self.batch_shape)
         return self.loc + self.scale * tdist.draw_events(
-            lambda full: torch.from_numpy(noise(full)), shape)
+            lambda full: torch.from_numpy(draw(full)), shape)
 
     tdist.Laplace.sample = sample
     try:
@@ -67,6 +77,97 @@ def train_steps(model, batch, steps, K=2, reduction="sum", pinned=True, accum_st
             state, loss = step(state, batch)
             losses.append(loss.item())
     return losses, gather_state_tp(state, mesh)["model"]
+
+
+def scan_epochs(model, data, epochs, batch_size, K=2, reduction="sum", accum_steps=1,
+                pinned=True, shared=False, device="cpu", skew=0.0, frozen=None):
+    """``epochs`` epochs of ``make_scan_epoch`` on this rank's mesh with
+    ``graph=True`` (the data-parallel graph's stages; eager on the CPU) and
+    ``graph=False`` (the DDP step loop), each from a copy of ``model``
+    whose parameters this rank first moves by rank·``skew`` (both start
+    from rank 0's), the parameters whose names start with ``frozen``
+    frozen. For each: the epoch losses, the state dict on the CPU and
+    every rank's parameters after the run, and the epoch function's
+    ``step_loop_reason``."""
+    import torch.distributed as dist
+
+    from vaesne_tpu_torch.parallel.mesh import to_host
+
+    torch.set_num_threads(1)  # small models: the ranks' threads would only contend
+    mesh = current_mesh()
+    out = {}
+    for graph in (True, False):
+        m = copy.deepcopy(model)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.add_(dist.get_rank() * skew)
+        opt = ttr.adamw(1e-3)
+        trainable = None if frozen is None else {
+            name: not name.startswith(frozen) for name, _ in m.named_parameters()}
+        state = ttr.TrainState.create(m, opt, seed=0, device=device, trainable=trainable)
+        run = ttr.make_scan_epoch(m, opt, tobj.as_loss(tobj.m_iwae, K=K), accum_steps,
+                                  reduction, device=device, mesh=mesh, graph=graph)
+        losses = []
+        with pinned_noise(shared) if pinned else contextlib.nullcontext():
+            for epoch in range(epochs):
+                state, loss = run(state, data, torch.Generator().manual_seed(10 + epoch),
+                                  batch_size)
+                losses.append(loss)
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, [p.detach().cpu() for p in m.parameters()])
+        out[graph] = (losses, to_host(state.state_dict()), ranks,
+                      getattr(run, "step_loop_reason", None))
+    return out
+
+
+def dp_step_sites(model, batch, step_seeds, K=2):
+    """On every rank: the draw sites of one step of the data-parallel
+    graph's stages, recorded at one step seed and recomputed for each of
+    ``step_seeds`` with ``SeedTape.values``, against the (kind, seed) sites
+    of the DDP step loop's step at that seed. Returns, per rank, per step
+    seed: (the recomputed sites, the eager sites, the tape's paths, the
+    eager sites' paths)."""
+    import torch.distributed as dist
+
+    from vaesne_tpu_torch.utils import rng
+
+    mesh = current_mesh()
+    loss_fn = tobj.as_loss(tobj.m_iwae, K=K)
+    opt = ttr.adamw(1e-3)
+    m = copy.deepcopy(model)
+    state = ttr.TrainState.create(m, opt, device="cpu")
+    run = ttr.make_scan_epoch(m, opt, loss_fn, device="cpu", mesh=mesh)
+    with rng.recording(rng.SeedTape()) as tape:
+        run(state, batch, torch.Generator().manual_seed(3), batch[0][0].shape[0])
+    paths = [path for _, path, _ in tape.sites]
+    out = []
+    for step_seed in step_seeds:
+        generators, words = tape.values(step_seed)
+        by_path = dict(zip(tape.paths("word"), words))
+        gens = iter(generators)
+        replayed = [(kind, next(gens) if kind == "generator" else by_path[path])
+                    for kind, path, _ in tape.sites]
+        real = ttr.draw_seed
+        ttr.draw_seed = lambda g: step_seed  # noqa: B023
+        try:
+            m = copy.deepcopy(model)
+            state = ttr.TrainState.create(m, opt, device="cpu")
+            step = ttr.make_train_step(m, opt, loss_fn, device="cpu", mesh=mesh)
+            with rng.recording(rng.SeedTape()) as eager:
+                step(state, batch)
+        finally:
+            ttr.draw_seed = real
+        out.append((replayed, [(kind, v) for kind, _, v in eager.sites], paths,
+                    [path for _, path, _ in eager.sites]))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, out)
+    return ranks
+
+
+def dp_graph_checks(cases, shared_case, site_case):
+    """``scan_epochs`` for each of ``cases`` and for ``shared_case``, then
+    ``dp_step_sites`` for ``site_case``, in one launch."""
+    return [scan_epochs(*c) for c in cases], scan_epochs(*shared_case), dp_step_sites(*site_case)
 
 
 def info_nce_grads(model, batch, dtype=torch.float32):

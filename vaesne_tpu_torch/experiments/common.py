@@ -211,8 +211,13 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     each epoch as one CUDA graph of the step on the card, replayed at every
     step after a warm-up step and kept across epochs (the capture-ready step
     eagerly on the CPU); false runs the step loop, the same run bitwise.
-    Augmentation, the save, ``callback`` and the progress record stay
-    outside the graph, and a save between epochs reads the live weights.
+    Under a data-parallel ``train.mesh`` each rank's step is two graphs,
+    the gradients and the update, around the eager gradient all-reduce;
+    where a collective runs inside the step (a tensor-parallel mesh,
+    InfoNCE's gather) the step loop runs from the second step on, and a
+    line says which collective kept it. Augmentation, the save,
+    ``callback`` and the progress record stay outside the graph, and a
+    save between epochs reads the live weights.
 
     Every ``train.save_every`` epochs and at the last epoch the state, the
     config (tagged with its class), ``losses.npy`` and ``progress.json`` go
@@ -312,9 +317,6 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
             shard_state_tp(state, mesh)  # checks every attention's head count
         if log:
             print(f"training on {mesh.size} ranks (mesh {mesh.shape}, {mesh.backend})")
-    if train_cfg.scan_epoch and mesh is not None and log:
-        print("train.scan_epoch: the step loop runs under a mesh (no CUDA graph of a "
-              "data-parallel step)")
     epoch_fn = make_scan_epoch(model, opt, loss_fn, train_cfg.accum_steps,
                                train_cfg.accum_reduction, device, mesh=mesh,
                                graph=train_cfg.scan_epoch)
@@ -331,6 +333,11 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
                                     torch.Generator().manual_seed(shuffle_seed),
                                     train_cfg.batch_size)
         losses.append(mean_loss)
+        reason = getattr(epoch_fn, "step_loop_reason", None)
+        if reason and log and epoch == start_epoch:
+            print(f"train.scan_epoch: the step loop runs under this mesh from the second step "
+                  f"on: the step runs {reason} inside its forward and backward, where no CUDA "
+                  f"graph of the step holds a collective")
         if log:
             print(f"epoch {epoch + 1}/{train_cfg.epochs}: loss {losses[-1]:.6f}")
         saving = (epoch + 1) % train_cfg.save_every == 0 or epoch + 1 == train_cfg.epochs

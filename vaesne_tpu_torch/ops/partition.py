@@ -15,7 +15,9 @@ evaluation chunk). Inside it:
 * ``shard_seed`` offsets a kernel's dropout seed by the shard's linearized
   mesh index times ``local_rows·local_heads·1024``, the kernel's seed
   namespace on one shard, so the shards' mask streams are disjoint and each
-  equals the JAX package's sharded kernel's, shard for shard;
+  equals the JAX package's sharded kernel's, shard for shard; a step seed
+  keeps its ``fold_in`` path through the offset (``utils.rng.add_offset``),
+  so a CUDA graph of a rank's step recomputes it at every replay;
 * ``global_draw`` draws a generator dropout's mask (the residual branches,
   the plain attention path) for the whole step and keeps this rank's part,
   so the ranks drop what one process drops;
@@ -28,19 +30,21 @@ The collectives are autograd functions: ``copy_to_model`` and
 ``reduce_from_model`` are Megatron's pair around a column- and a
 row-parallel layer, ``gather_events`` assembles the ranks' event shards on
 every rank with one all-reduce into a zeroed buffer (gloo on CUDA tensors
-offers all-reduce and broadcast alone).
+offers all-reduce and broadcast alone). ``collectives_reached`` counts them
+by name, so a train step can tell whether a collective runs inside it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
+from ..utils.rng import add_offset
+
 SEED_NAMESPACE = 1024  # the kernel's seed block per (row, head)
-_M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,9 +88,10 @@ def shard_seed(seed: int, data_rank: int, model_rank: int, n_model: int, local_r
     ``seed + index·local_rows·local_heads·1024`` mod 2³², the index
     linearized with the batch axis before the head axis
     (``vaesne_tpu/ops/attention.py:572-607``). Pass ``model_rank`` 0 and
-    ``n_model`` 1 where the heads are not split."""
+    ``n_model`` 1 where the heads are not split. A ``StepSeed`` gives a
+    ``StepSeed`` of the same value."""
     index = data_rank * n_model + model_rank
-    return (seed + index * local_rows * local_heads * SEED_NAMESPACE) & _M32
+    return add_offset(seed, index * local_rows * local_heads * SEED_NAMESPACE)
 
 
 def kernel_seed(seed: Optional[int], rows: int, heads: int, heads_split: bool) -> Optional[int]:
@@ -134,9 +139,20 @@ def global_rows(rows: int) -> int:
     return rows if _ACTIVE is None else rows * _ACTIVE.n_data
 
 
-def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+_REACHED: Dict[str, int] = {}
+
+
+def collectives_reached() -> Dict[str, int]:
+    """How often each of the layers' collectives has run in this process,
+    by name: ``copy_to_model`` (its backward), ``reduce_from_model``,
+    ``gather_events`` (forward and backward), ``gather_state_tp``."""
+    return dict(_REACHED)
+
+
+def _all_reduce(t: torch.Tensor, group, name: str) -> torch.Tensor:
     import torch.distributed as dist
 
+    _REACHED[name] = _REACHED.get(name, 0) + 1
     dist.all_reduce(t, group=group)
     return t
 
@@ -153,7 +169,7 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad.contiguous().clone(), ctx.group), None
+        return _all_reduce(grad.contiguous().clone(), ctx.group, "copy_to_model"), None
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -162,7 +178,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        return _all_reduce(x.contiguous().clone(), group)
+        return _all_reduce(x.contiguous().clone(), group, "reduce_from_model")
 
     @staticmethod
     def backward(ctx, grad):
@@ -185,13 +201,13 @@ def _wide(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype.is_floating_point else torch.int64
 
 
-def _assemble(t: torch.Tensor, axis: int, rank: int, n: int, group) -> torch.Tensor:
+def _assemble(t: torch.Tensor, axis: int, rank: int, n: int, group, name: str) -> torch.Tensor:
     shape = list(t.shape)
     size = shape[axis]
     shape[axis] = size * n
     out = torch.zeros(shape, dtype=_wide(t.dtype), device=t.device)
     out.narrow(axis, rank * size, size).copy_(t)
-    return _all_reduce(out, group).to(t.dtype)
+    return _all_reduce(out, group, name).to(t.dtype)
 
 
 class _GatherEvents(torch.autograd.Function):
@@ -202,12 +218,14 @@ class _GatherEvents(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, axis, shard):
         ctx.axis, ctx.shard = axis, shard
-        return _assemble(t, axis, shard.data_rank, shard.n_data, shard.data_group)
+        return _assemble(t, axis, shard.data_rank, shard.n_data, shard.data_group,
+                         "gather_events")
 
     @staticmethod
     def backward(ctx, grad):
         s, size = ctx.shard, grad.shape[ctx.axis] // ctx.shard.n_data
-        total = _all_reduce(grad.to(_wide(grad.dtype)).contiguous().clone(), s.data_group)
+        total = _all_reduce(grad.to(_wide(grad.dtype)).contiguous().clone(), s.data_group,
+                            "gather_events")
         return total.narrow(ctx.axis, s.data_rank * size, size).to(grad.dtype), None, None
 
 

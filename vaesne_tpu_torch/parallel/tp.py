@@ -128,7 +128,8 @@ def _shard(model: nn.Module, mesh: Mesh, num_heads, optimizer) -> nn.Module:
 
 
 def _gather(t: torch.Tensor, axis: int, shard: Shard) -> torch.Tensor:
-    return _assemble(t.detach(), axis, shard.model_rank, shard.n_model, shard.model_group)
+    return _assemble(t.detach(), axis, shard.model_rank, shard.n_model, shard.model_group,
+                     "gather_state_tp")
 
 
 def gather_state_tp(state, mesh: Mesh) -> dict:

@@ -212,6 +212,18 @@ def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tens
     the loss."""
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got {reduction!r}")
+    total = _accumulate(neg_loss_fn, model, batch, seed, accum_steps, no_sync)
+    if reduction == "mean":
+        inv = 1.0 / accum_steps
+        torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
+        total = total * inv
+    return total
+
+
+def _accumulate(neg_loss_fn, model: nn.Module, batch, seed: int, accum_steps: int,
+                no_sync=None) -> torch.Tensor:
+    """``accumulate_gradients``' microbatch loop: the gradients and the
+    losses summed over the microbatches."""
     n = _leaves(batch)[0].shape[0]
     if n % accum_steps != 0:
         raise ValueError(f"batch size {n} not divisible by accum_steps {accum_steps}")
@@ -224,10 +236,6 @@ def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tens
             loss = neg_loss_fn(model, micro, fold_in(seed, i))
             loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
-    if reduction == "mean":
-        inv = 1.0 / accum_steps
-        torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
-        total = total * inv
     return total
 
 
@@ -329,14 +337,123 @@ def _step_body(model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps:
             dist.all_reduce(loss, group=shard.data_group)
             if accum_reduction == "mean":
                 loss = loss / shard.n_data
-        if optimizer.grad_clip is not None:  # over the trainable parameters alone
-            grads = [(p, p.grad) for p in state.trainable_parameters() if p.grad is not None]
-            clip_by_global_norm([g for _, g in grads], optimizer.grad_clip,
-                                _global_norm(state, grads, shard))
-        state.optimizer.step()
+        _clip_and_update(state, optimizer, shard)
         return loss
 
     return body
+
+
+def _clip_and_update(state: TrainState, optimizer: AdamW, shard) -> None:
+    """The global-norm clip over the trainable parameters alone, then the
+    AdamW update."""
+    if optimizer.grad_clip is not None:
+        grads = [(p, p.grad) for p in state.trainable_parameters() if p.grad is not None]
+        clip_by_global_norm([g for _, g in grads], optimizer.grad_clip,
+                            _global_norm(state, grads, shard))
+    state.optimizer.step()
+
+
+class _Stage(NamedTuple):
+    """A part of the step, ``fn(state, batch, seed)``, the last returning
+    the loss; ``captured``: a CUDA graph holds it on the card."""
+
+    fn: Callable[[TrainState, Any, int], Optional[torch.Tensor]]
+    captured: bool
+
+
+class _DataParallelStep:
+    """``make_train_step``'s step under a mesh, in three stages, so that a
+    CUDA graph can hold each side of the gradient all-reduce (``stages``):
+
+    (i) the (accumulated) backward of this rank's slice of each
+        (micro)batch through the model itself, not DDP, under the shard;
+        then the trainable gradients and the loss packed into one buffer,
+        the gradients times 1/n for a batch-mean objective;
+    (ii) one all-reduce of the buffer over the data group (eager);
+    (iii) the gradients unpacked (then divided by the microbatch count for
+        a batch-mean objective), the loss divided by n for a batch-mean
+        objective, the clip and the AdamW update.
+
+    That is DDP's arithmetic: its reducer multiplies each gradient by 1/n
+    into its bucket (the comm hook of a batch-sum objective copies it) and
+    sums the buckets once, after the last microbatch. A sum over two ranks
+    is one addition, so on two ranks the stages give the DDP step bitwise
+    (over more, the backend may order the sum of this buffer otherwise
+    than DDP's buckets'). Frozen parameters
+    stay out, as they stay out of DDP's buckets. ``start`` broadcasts the
+    data group's first rank's parameters and buffers, as DDP's constructor
+    does."""
+
+    def __init__(self, model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
+                 accum_reduction: str, device: torch.device, precision: str, mesh):
+        from .parallel.mesh import shard_batch, shard_of
+
+        if accum_reduction not in ("mean", "sum"):
+            raise ValueError(f"reduction must be 'mean' or 'sum', got {accum_reduction!r}")
+        self.model, self.optimizer, self.accum_steps = model, optimizer, accum_steps
+        self.mean = accum_reduction == "mean"
+        self.shard = shard_of(mesh)
+        self.buffer: Optional[torch.Tensor] = None  # the gradients, then the loss
+        self.grads: List[torch.Tensor] = []  # the gradients packed into it
+
+        def neg_loss(m, b, seed):
+            with autocast(precision, device):
+                return -loss_fn(m, shard_batch(b, mesh), seed)
+
+        self.neg_loss = neg_loss
+
+    def stages(self) -> List[_Stage]:
+        return [_Stage(self.gradients, True), _Stage(self.reduce, False),
+                _Stage(self.update, True)]
+
+    def start(self) -> None:
+        import torch.distributed as dist
+
+        # the data group's first rank: (data 0, this model rank)
+        for t in [*self.model.parameters(), *self.model.buffers()]:
+            dist.broadcast(t.detach(), src=self.shard.model_rank, group=self.shard.data_group)
+
+    def gradients(self, state: TrainState, batch, seed: int) -> None:
+        state.optimizer.zero_grad(set_to_none=True)
+        with cudnn_fp32_deterministic(), partition.sharded(self.shard):
+            if self.accum_steps == 1:
+                loss = self.neg_loss(self.model, batch, seed)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                loss = _accumulate(self.neg_loss, self.model, batch, seed, self.accum_steps)
+                if self.mean:
+                    loss = loss * (1.0 / self.accum_steps)
+        grads = [p.grad for p in state.trainable_parameters()]
+        if any(g is None for g in grads):
+            raise RuntimeError("a trainable parameter took no gradient: under a mesh every "
+                               "trainable parameter must take one in every step (as under DDP)")
+        if any(g.dtype != loss.dtype for g in grads):
+            raise TypeError(f"the data-parallel step packs the gradients and the loss into one "
+                            f"buffer of one dtype; the loss is {loss.dtype}, the gradients "
+                            f"{sorted({str(g.dtype) for g in grads})}")
+        n = sum(g.numel() for g in grads) + 1
+        if self.buffer is None or (self.buffer.numel(), self.buffer.dtype) != (n, loss.dtype):
+            self.buffer = loss.new_empty(n)  # kept: the graphs and the all-reduce meet here
+        self.grads = grads
+        torch.cat([*(g.reshape(-1) for g in grads), loss.reshape(1)], out=self.buffer)
+        if self.mean and self.shard.n_data > 1:
+            self.buffer[:-1].mul_(1.0 / self.shard.n_data)
+
+    def reduce(self, state: TrainState, batch, seed: int) -> None:
+        import torch.distributed as dist
+
+        dist.all_reduce(self.buffer, group=self.shard.data_group)
+
+    def update(self, state: TrainState, batch, seed: int) -> torch.Tensor:
+        parts = self.buffer.split([g.numel() for g in self.grads] + [1])
+        torch._foreach_copy_(self.grads, [v.view_as(g) for v, g in zip(parts, self.grads)])
+        if self.mean and self.accum_steps > 1:
+            torch._foreach_mul_(self.grads, 1.0 / self.accum_steps)
+        loss = parts[-1].view(())
+        loss = loss / self.shard.n_data if self.mean else loss.clone()
+        _clip_and_update(state, self.optimizer, self.shard)
+        return loss
 
 
 def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
@@ -423,10 +540,11 @@ def _rebuild(tree, leaves: Iterator[torch.Tensor]):
 
 
 class _Captured(NamedTuple):
-    """A captured step: the graph, the capture's tape, the generators and
-    seed words it draws from, its loss output and its kernel launches."""
+    """A captured step: a graph for each captured stage (None for an eager
+    one), the capture's tape, the generators and seed words it draws from,
+    its loss output and its kernel launches."""
 
-    graph: "torch.cuda.CUDAGraph"
+    graphs: List[Optional["torch.cuda.CUDAGraph"]]
     tape: SeedTape
     generators: List[torch.Generator]
     words: torch.Tensor
@@ -435,28 +553,42 @@ class _Captured(NamedTuple):
 
 
 class _GraphEpoch:
-    """``make_scan_epoch``'s epoch on one process, ``run(state, data,
-    generator, batch_size)``: the permutation of ``epoch_batches``, each
-    step's batch gathered into static buffers (``index_select(out=)``), the
-    step body of ``make_train_step`` on them.
+    """``make_scan_epoch``'s epoch on one process or one rank, ``run(state,
+    data, generator, batch_size)``: the permutation of ``epoch_batches``,
+    each step's batch gathered into static buffers (``index_select(out=)``),
+    the step's ``stages`` on them.
 
     On the card the first step of a geometry runs eagerly on a side stream,
     its draw sites recorded (``utils.rng.SeedTape``); the next step captures
-    the body once as a ``torch.cuda.CUDAGraph``, and it and every later step
-    are replays: the host recomputes the sites' seeds from the step's seed,
+    each captured stage once as a ``torch.cuda.CUDAGraph`` (the later ones
+    in the first one's memory pool), and it and every later step are
+    replays: the host recomputes the sites' seeds from the step's seed,
     re-seeds the graph's generators, writes the kernels' seed words and
-    replays. Parameters and moments update in place. A new graph is
-    captured when the batch geometry, the model's train mode, the remat
-    setting, the dropout width, the optimizer or its restore count
-    (``TrainState.version``) changes. A failed capture raises. On the CPU
-    the same body runs eagerly at every step."""
+    replays the graphs in order, running an eager stage (a mesh's gradient
+    all-reduce) between them. Parameters and moments update in place. A new
+    graph is captured when the batch geometry, the model's train mode, the
+    remat setting, the dropout width, the mesh, the optimizer or its restore
+    count (``TrainState.version``) changes. A failed capture raises. On the
+    CPU the same stages run eagerly at every step.
 
-    def __init__(self, model: nn.Module, body, device: torch.device):
-        self.model, self.body, self.device = model, body, device
+    Under a mesh ``start`` runs once, before the first step, and the first
+    step counts the layers' collectives (``partition.collectives_reached``):
+    where one runs inside the step (a tensor-parallel layer's all-reduce,
+    InfoNCE's gather of the events), no graph can hold it under gloo, and
+    every later step runs ``loop`` (the step loop's step) instead;
+    ``step_loop_reason`` then names those collectives."""
+
+    def __init__(self, model: nn.Module, stages: List[_Stage], device: torch.device,
+                 mesh=None, start=None, loop=None):
+        if not stages[-1].captured:
+            raise ValueError("the step's last stage returns the loss and must be captured")
+        self.model, self.stages, self.device, self.mesh = model, stages, device, mesh
+        self.start, self.loop = start, loop
         self.key = None      # what the buffers, the warm-up and the graph were made for
         self.buffers = None  # the step's batch leaves, filled in place
         self.warm = None     # the warm-up step's tape
         self.graph: Optional[_Captured] = None
+        self.step_loop_reason: Optional[str] = None
 
     def __call__(self, state: TrainState, data, generator: torch.Generator,
                  batch_size: int) -> Tuple[TrainState, float]:
@@ -471,9 +603,12 @@ class _GraphEpoch:
     def _key(self, state: TrainState, leaves, batch_size: int):
         remat = tuple(m.remat for m in self.model.modules() if isinstance(m, TransformerStack))
         return (tuple((a.shape[1:], a.dtype) for a in leaves), batch_size, state.optimizer,
-                state.version, self.model.training, dropout_bits(), remat)
+                state.version, self.model.training, dropout_bits(), remat, self.mesh)
 
     def _step(self, state: TrainState, data, leaves, idx: torch.Tensor) -> torch.Tensor:
+        if self.step_loop_reason is not None:
+            state, loss = self.loop(state, _tree_map(lambda a: a[idx], data))
+            return loss
         seed = StepSeed(draw_seed(state.generator))
         key = self._key(state, leaves, idx.numel())
         if key != self.key:
@@ -483,64 +618,104 @@ class _GraphEpoch:
             torch.index_select(a, 0, idx, out=buf)
         if self.graph is None:
             batch = _rebuild(data, iter(self.buffers))
-            if self.device.type != "cuda":
-                loss = self.body(state, batch, seed)
-            elif self.warm is None:
+            if self.warm is None:
                 loss = self._warm_up(state, batch, seed)
+            elif self.device.type != "cuda":
+                loss = self._run(state, batch, seed)
             else:
                 self._capture(state, batch, seed)
         if self.graph is not None:
-            loss = self._replay(seed)
+            loss = self._replay(state, seed)
         state.step += 1
         return loss
 
+    def _run(self, state: TrainState, batch, seed: int) -> torch.Tensor:
+        for stage in self.stages:
+            out = stage.fn(state, batch, seed)
+        return out
+
     def _warm_up(self, state: TrainState, batch, seed: int) -> torch.Tensor:
-        """The first step of a geometry, eager on a side stream (as torch
-        asks of a capture's warm-up), its draw sites recorded."""
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
+        """The first step of a geometry, eager (on the card on a side
+        stream, as torch asks of a capture's warm-up, its draw sites
+        recorded), the collectives it reaches counted."""
+        if self.start is not None:
+            self.start()
+            self.start = None
         tape = SeedTape()
-        with torch.cuda.stream(side), recording(tape):
-            loss = self.body(state, batch, seed)
-        main.wait_stream(side)
-        loss.record_stream(main)
+        before = partition.collectives_reached()
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side), recording(tape):
+                loss = self._run(state, batch, seed)
+            main.wait_stream(side)
+            loss.record_stream(main)
+        else:  # no capture follows: nothing to record
+            loss = self._run(state, batch, seed)
+        reached = sorted(name for name, n in partition.collectives_reached().items()
+                         if n != before.get(name, 0))
+        if reached:
+            if self.loop is None:
+                raise RuntimeError(f"the step ran {', '.join(reached)} outside a mesh")
+            self.step_loop_reason = ", ".join(reached)
         self.warm = tape
         return loss
 
     def _capture(self, state: TrainState, batch, seed: int) -> None:
-        """Capture the body: a generator per generator site of the warm-up,
-        registered with the graph, and a seed word per kernel seed. The
-        capture runs no kernel, so its launches come off the counters."""
+        """Capture the captured stages: a generator per generator site of
+        the warm-up, registered with the first graph (the draws are the
+        first stage's), and a seed word per kernel seed. The capture runs no
+        kernel, so its launches come off the counters."""
         warm = self.warm
         generators = [torch.Generator(device=self.device) for _ in warm.paths("generator")]
         words = torch.zeros(len(warm.paths("word")), dtype=torch.int32, device=self.device)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
         tape = SeedTape(generators, words)
+        graphs, pool = [], None
+        # a mesh's process group polls its work from threads of its own,
+        # whose CUDA calls must not void this thread's capture
+        mode = "global" if self.mesh is None else "thread_local"
         before = counters.launch_counts()
         # autocast's cached casts would outlive the capture; uncached, the
         # casts give the same values
-        with torch.cuda.graph(graph), recording(tape), no_autocast_cache():
-            loss = self.body(state, batch, seed)
+        with recording(tape), no_autocast_cache():
+            for stage in self.stages:
+                if not stage.captured:
+                    graphs.append(None)
+                    continue
+                graph = torch.cuda.CUDAGraph()
+                drawn = len(tape.sites)
+                if pool is None:
+                    for g in generators:
+                        graph.register_generator_state(g)
+                with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
+                    loss = stage.fn(state, batch, seed)
+                if pool is not None and len(tape.sites) != drawn:
+                    raise RuntimeError("a captured stage after the first one draws random "
+                                       "numbers")
+                pool = graph.pool() if pool is None else pool
+                graphs.append(graph)
         after = counters.launch_counts()
         counters.set_launch_counts(before)
         if [site[:2] for site in tape.sites] != [site[:2] for site in warm.sites]:
             raise RuntimeError("the captured step reached other draw sites than its warm-up step")
-        self.graph = _Captured(graph, tape, generators, words, loss,
+        self.graph = _Captured(graphs, tape, generators, words, loss,
                                {name: after[name] - before[name] for name in after})
         global captures
         captures += 1
 
-    def _replay(self, seed: int) -> torch.Tensor:
+    def _replay(self, state: TrainState, seed: int) -> torch.Tensor:
         g = self.graph
         generator_seeds, word_seeds = g.tape.values(seed)
         for generator, s in zip(g.generators, generator_seeds):
             generator.manual_seed(s)
         for word, s in zip(g.words.unbind(), word_seeds):  # a fill each, in stream order
             word.fill_(word_value(s))
-        g.graph.replay()
+        for stage, graph in zip(self.stages, g.graphs):
+            if graph is None:
+                stage.fn(state, None, seed)
+            else:
+                graph.replay()
         counters.add_launch_counts(g.launches)
         return g.loss.clone()
 
@@ -558,17 +733,27 @@ def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     graph of the step, replayed at every step after a warm-up step, with
     the same permutation, seeds and update as the step loop, bitwise
     (``_GraphEpoch``); on the CPU the same capture-ready body eagerly.
-    ``graph=False``: ``train_epoch`` over ``make_train_step``. Under
-    ``mesh`` the step loop runs either way (gloo cannot be captured, nor is
-    DDP inside a graph here): every rank draws the same permutation and each
-    step runs the rank's slice of the batch (``make_train_step``)."""
+    Under ``mesh`` every rank draws the same permutation and runs its slice
+    of each step's batch; with ``graph=True`` the step is two graphs, the
+    gradients and the update, around the gradient all-reduce, which runs
+    eagerly between their replays (``_DataParallelStep``, DDP's arithmetic,
+    bitwise the step loop on two ranks), unless a collective runs inside
+    the step (tensor-parallel layers, InfoNCE's gather): then the step loop
+    runs from the second step on, and the function's ``step_loop_reason``
+    names the collective. ``graph=False``: ``train_epoch`` over
+    ``make_train_step`` (DDP under ``mesh``)."""
     if graph and mesh is None:
         device = resolve_device(device)
-        return _GraphEpoch(model, _step_body(model, optimizer, loss_fn, accum_steps,
-                                             accum_reduction, device,
-                                             resolve_precision(precision), None), device)
+        body = _step_body(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                          resolve_precision(precision), None)
+        return _GraphEpoch(model, [_Stage(body, True)], device)
     step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
                            precision, mesh)
+    if graph:
+        device = resolve_device(device)
+        split = _DataParallelStep(model, optimizer, loss_fn, accum_steps, accum_reduction,
+                                  device, resolve_precision(precision), mesh)
+        return _GraphEpoch(model, split.stages(), device, mesh, split.start, step)
 
     def run(state: TrainState, data, generator: torch.Generator,
             batch_size: int) -> Tuple[TrainState, float]:

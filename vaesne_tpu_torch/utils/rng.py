@@ -16,6 +16,8 @@ the order the step reaches it: each posterior or dropout generator
 the replayed step's seed (``SeedTape.values``), re-seeds the graph's own
 generators and writes the kernels' seeds into the device words the graph
 reads, so each replay draws what the eager step would draw with its seed.
+A rank's kernel seed is the step's plus its shard's offset (``add_offset``),
+which the path records too.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ _MASK64 = (1 << 64) - 1
 _M32 = 0xFFFFFFFF
 SEED_BOUND = 1 << 31  # seeds are non-negative int32, as the JAX layer draws them
 
-Path = Tuple[int, ...]
+# a path's steps: an int is fold_in's data, ("+", k) adds k mod 2³² (add_offset)
+Path = Tuple[Union[int, Tuple[str, int]], ...]
 
 
 def _mix64(x: int) -> int:
@@ -41,8 +44,8 @@ def _mix64(x: int) -> int:
 
 class StepSeed(int):
     """A train step's seed, or a seed folded from one: the integer, and
-    ``path``, the ``fold_in`` data that lead from the step's seed to it.
-    Arithmetic other than ``fold_in`` gives a plain int."""
+    ``path``, the ``fold_in`` data (and ``add_offset`` offsets) that lead
+    from the step's seed to it. Other arithmetic gives a plain int."""
 
     path: Path
 
@@ -58,6 +61,20 @@ def fold_in(seed: int, data: int) -> int:
     value = _mix64((_mix64(seed & _MASK64) + data + 1) & _MASK64) % SEED_BOUND
     path = getattr(seed, "path", None)
     return value if path is None else StepSeed(value, path + (data,))
+
+
+def add_offset(seed: int, offset: int) -> int:
+    """``(seed + offset) mod 2³²``, an event or head shard's kernel seed
+    (``ops.partition.shard_seed``); a ``StepSeed`` in, a ``StepSeed`` out,
+    whose path ends in the offset, so a replay recomputes it."""
+    value = (int(seed) + offset) & _M32
+    path = getattr(seed, "path", None)
+    return value if path is None else StepSeed(value, path + (("+", offset),))
+
+
+def _follow(seed: int, step) -> int:
+    """One step of a path from ``seed``: ``fold_in`` or ``add_offset``."""
+    return add_offset(seed, step[1]) if isinstance(step, tuple) else fold_in(seed, step)
 
 
 def maybe_fold_in(seed: Optional[int], data: int) -> Optional[int]:
@@ -142,7 +159,7 @@ class SeedTape:
         def at(path: Path) -> int:
             value = memo.get(path)
             if value is None:
-                value = memo[path] = fold_in(at(path[:-1]), path[-1])
+                value = memo[path] = _follow(at(path[:-1]), path[-1])
             return value
 
         return [at(p) for p in self._plan[0]], [at(p) for p in self._plan[1]]
