@@ -136,20 +136,34 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      CUDA graphs per rank (the gradients; the update) around the gradient
      all-reduce, which runs eagerly between their replays, against the DDP
      step loop (spawned ranks on the one card): (a) a world-1 NCCL group
-     runs train_photospectra inside its rank for 3 epochs in fp32, the two
-     bitwise equal with phase 10's launches every epoch; (b) two ranks
-     sharing the card over gloo, 8 events a rank, in fp32 (3 epochs, the
-     graph run's epoch-2 checkpoint resumed under the graph), VAESNE_BF16=1
-     (3 epochs) and train.accum_steps=2 (1 epoch), these two on 128
-     synthetic events (6 steps an epoch), each bitwise its step loop,
-     every rank's launches as the global-row dispatch predicts, each
+     runs train_photospectra inside its rank for an epoch in fp32 on 128
+     synthetic events (6 steps), the two bitwise equal with phase 10's
+     launches; (b) two ranks sharing the card over gloo, 8 events a rank,
+     in fp32 (3 epochs, the graph run's epoch-2 checkpoint resumed under
+     the graph), VAESNE_BF16=1 and train.accum_steps=2 (1 epoch each),
+     these two on the 128 events (6 steps an epoch), each bitwise its step
+     loop, every rank's launches as the global-row dispatch predicts, each
      rank's K1/K2 held against their plain versions on the last replayed
-     step's input with its shard seed; (c) a 1x2 tensor-parallel driver and
-     DP train_contrastive keep the step loop and print which collective
-     kept them there; (d) samples/s a rank, busy share and peak memory of
-     graph and step loop for (b)'s fp32 driver and the B = 192 DP step (96
-     events a rank), and the gloo all-reduce's time (two ranks on one card:
-     not a scaling number).
+     step's input with its shard seed; (c) a 1x2 tensor-parallel driver
+     keeps the step loop and prints which collective kept it there, and DP
+     train_contrastive prints no such line; (d) samples/s a rank, busy
+     share and peak memory of graph and step loop for (b)'s fp32 driver and
+     the B = 192 DP step (96 events a rank), and the gloo all-reduce's time
+     (two ranks on one card: not a scaling number).
+ 19. train_contrastive under a data-parallel train.mesh on two gloo ranks
+     sharing the card (16 events a rank): each (micro)batch's step split at
+     InfoNCE's gather into CUDA graphs of the towers, the head and the
+     towers' backward, the gather's two all-reduces and the gradient
+     all-reduce eager between them, against the DDP step loop: (a)
+     model.selfattn=true in fp32 (3 epochs, the graph run's epoch-2
+     checkpoint resumed under the graph) and VAESNE_BF16=1 (1 epoch), each
+     bitwise its step loop, every rank's K1/K2 launches as predicted and
+     held against their plain versions on the last replayed step's
+     983x983 input with its shard seed; (b) the default towers and
+     model.selfattn=true at train.accum_steps=2 (1 epoch each), bitwise;
+     (c) samples/s a rank, rank 0's busy share and peak memory of graph
+     and step loop for (a)'s fp32 run, and the time of each eager
+     collective of a step.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -2350,7 +2364,7 @@ def hold_rank_kernels(q, k, v, mask, heads, rate, seed, phase):
     mask = None if mask is None else mask[:HELD_ROWS].contiguous()
     dout = randn_like(q, 1400)
     ref, want = [], []
-    for r0 in range(0, HELD_ROWS, REF_ROWS):
+    for r0 in range(0, q.shape[0], REF_ROWS):
         s = slice(r0, r0 + REF_ROWS)
         s_seed = (seed + r0 * heads * 1024) & 0xFFFFFFFF
         m_s = None if mask is None else mask[s]
@@ -2496,7 +2510,7 @@ def _check_launches(label, table, want, phase=14):
     return [tuple(int(x) for x in row[:5]) for row in table]
 
 
-def _check_masks(label, table, phase=14):
+def _check_masks(label, table, phase=14, length=NS):
     """Each rank's K1 keep rate within 4 sigma of 230/256, the ranks' block
     seeds [seed, seed + rows·heads·1024) disjoint, and each rank's K1/K2
     held on its own captured input with its own seed (``rank_step``).
@@ -2504,8 +2518,8 @@ def _check_masks(label, table, phase=14):
     spans = []
     for r, row in enumerate(table):
         seed, rows, heads, keep, sigmas = int(row[5]), int(row[6]), int(row[7]), row[8], row[9]
-        log(phase, f"{label} rank {r}: K1 seed {seed} over [{rows}, {NS}, {NS}] x {heads} heads, "
-                f"keep rate {keep:.6f} ({sigmas:.2f} sigma)")
+        log(phase, f"{label} rank {r}: K1 seed {seed} over [{rows}, {length}, {length}] x "
+                f"{heads} heads, keep rate {keep:.6f} ({sigmas:.2f} sigma)")
         assert sigmas <= 4, (label, r, keep)
         spans.append((seed, seed + rows * heads * 1024))
     for (a0, a1), (b0, b1) in zip(spans, spans[1:]):
@@ -2513,7 +2527,8 @@ def _check_masks(label, table, phase=14):
     for r, row in enumerate(table):
         err_f, err_b, rel_b = row[12:15]
         assert err_f >= 0, (label, r, "no K1/K2 input captured")
-        log(phase, f"{label} rank {r}: K1/K2 on its captured input ({HELD_ROWS} rows, seed "
+        held = min(HELD_ROWS, int(row[6]))
+        log(phase, f"{label} rank {r}: K1/K2 on its captured input ({held} rows, seed "
                 f"{int(row[5])}) against the plain versions: forward max-abs {err_f:.3e}, "
                 f"gradients max-abs {err_b:.3e} (worst of dq, dk, dv relative {rel_b:.2e})")
     return max(row[12] for row in table), max(row[13] for row in table)
@@ -3371,7 +3386,7 @@ def _same_state(a, b):
 
 
 def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=False,
-              resume=False, hold=False, phase=17):
+              resume=False, hold=False, phase=17, length=NS):
     """``main(argv)`` with train.scan_epoch=true (the graph) and false (the
     step loop), from one seed: each epoch's launches against ``per_step``;
     epoch 2's samples/s (host clock from one epoch's end to the next, the
@@ -3385,8 +3400,8 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
     profile (of its own kernels), every rank checks the bitwise
     equalities, and each run's numbers carry the per-rank ``table``
     (``_rank_table``: the run's launches; with ``hold`` each rank's K1/K2
-    held on the graph's last replayed step's input with its shard seed).
-    Returns {"graph": numbers, "eager": numbers}."""
+    held on the graph's last replayed step's ``length``x``length`` input
+    with its shard seed). Returns {"graph": numbers, "eager": numbers}."""
     mesh = parallel.current_mesh()
     lead = parallel.mesh.rank() == 0
     out, states = {}, {}
@@ -3424,7 +3439,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
         torch.cuda.reset_peak_memory_stats()
         captured, start = training.captures, kernel_counts()
         mark.update(t=time.perf_counter(), counts=start, step=0)
-        with capture_graph_kernel_input(store) if hold and name == "graph" else (
+        with capture_graph_kernel_input(store, length) if hold and name == "graph" else (
                 contextlib.nullcontext()):
             state, losses = main([*argv, *driver_args(seed, root, f"train.epochs={epochs}",
                                                        "train.save_every=1",
@@ -3441,7 +3456,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
             numbers["busy"] = report_profile(prof, window["wall_us"], 1,
                                              f"{label} {name}, epoch 3", top=8, phase=phase)
         if mesh is not None:
-            numbers["table"] = _rank_table(launches, store, numbers["peak"])
+            numbers["table"] = _rank_table(launches, store, numbers["peak"], phase)
         out[name], states[name] = numbers, state
         if lead:
             log(phase, f"{label} {name}: losses {losses}; peak memory {numbers['peak']:.0f} MiB"
@@ -3591,20 +3606,20 @@ def phase_graph(seed):
 
 
 @contextlib.contextmanager
-def capture_graph_kernel_input(store):
+def capture_graph_kernel_input(store, length=NS):
     """During a CUDA graph's capture, turn each K1 seed at a rate above 0
     into the graph's seed word before the call (the word the call would
     take; the host rewrites it before each replay) and keep the first
-    982x982 call's input as clones made inside the graph, so that every
-    replay refills them with its step's input: after a run, (q, k, v,
-    mask, heads, rate, word) hold its last step's input and the rank's
-    shard seed."""
+    ``length``x``length`` call's input as clones made inside the graph, so
+    that every replay refills them with its step's input: after a run, (q,
+    k, v, mask, heads, rate, word) hold its last step's input and the
+    rank's shard seed."""
     real = layers.fused_attention
 
     def capturing(q, k, v, mask, heads, rate, seed):
         if rate > 0 and torch.cuda.is_current_stream_capturing():
             seed = rng.seed_word(seed, q.device)
-            if not store and q.shape[1] == k.shape[1] == NS:
+            if not store and q.shape[1] == k.shape[1] == length:
                 store.extend((q.detach().clone(), k.detach().clone(), v.detach().clone(),
                               None if mask is None else mask.clone(), heads, rate, seed))
         return real(q, k, v, mask, heads, rate, seed)
@@ -3616,7 +3631,7 @@ def capture_graph_kernel_input(store):
         layers.fused_attention = real
 
 
-def _rank_table(counts, store, peak):
+def _rank_table(counts, store, peak, phase=18):
     """Every rank's row in phase 14's layout (``_check_launches``,
     ``_check_masks``): launches, then the K1 seed, rows, heads and keep
     rate of the held input ``store`` (``capture_graph_kernel_input``), peak
@@ -3627,13 +3642,13 @@ def _rank_table(counts, store, peak):
         q, k, v, mask, heads, rate, word = store
         seed_k1, rows_k1, heads_k1 = int(word.item()) & 0xFFFFFFFF, q.shape[0], heads
         if q.dtype == torch.bfloat16:
-            held = hold_rank_kernels(q, k, v, mask, heads, rate, seed_k1, phase=18)
-            log(18, f"rank {parallel.mesh.rank()}: bf16 K1/K2 on the last replayed step's input "
+            held = hold_rank_kernels(q, k, v, mask, heads, rate, seed_k1, phase=phase)
+            log(phase, f"rank {parallel.mesh.rank()}: bf16 K1/K2 on the last replayed step's input "
                     f"against the plain versions: forward rel {held[3]:.2e} (gate 2e-2), dq, "
                     f"dk, dv rel " + ", ".join(f"{e:.2e}" for e in held[2])
                     + " (dk, dv gate 2e-2; dq: Queue 3)")
             q, k, v = q.float(), k.float(), v.float()  # the masks, at the fp32 gates
-        held = hold_rank_kernels(q, k, v, mask, heads, rate, seed_k1, phase=18)
+        held = hold_rank_kernels(q, k, v, mask, heads, rate, seed_k1, phase=phase)
         errs = [held[0], held[1], max(held[2])]
         keep = rank_keep_rate(seed_k1, heads)
     return all_ranks([*counts, seed_k1, rows_k1, heads_k1, *keep, peak, 0.0, *errs])
@@ -3732,9 +3747,10 @@ def rank_loop_pair(seed, label, argv, per_step, epochs, **kw):
                      B_DRIVER // mesh.data, epochs, phase=18, **kw)
 
 
-def dp_graph_world1_program(seed, per_step):
-    """Phase 18(a) in the rank of a world-1 NCCL group."""
-    return rank_loop_pair(seed, "(a) world-1 NCCL", [], per_step, GRAPH_EPOCHS)
+def dp_graph_world1_program(seed, per_step, npz):
+    """Phase 18(a) in the rank of a world-1 NCCL group: an epoch on the
+    small dataset."""
+    return rank_loop_pair(seed, "(a) world-1 NCCL", [f"data={npz}"], per_step, 1)
 
 
 def dp_graph_two_ranks_program(seed, per_step, npz):
@@ -3744,8 +3760,8 @@ def dp_graph_two_ranks_program(seed, per_step, npz):
     res = {"fp32": rank_loop_pair(seed, "(b) 2 ranks fp32", [], per_step, GRAPH_EPOCHS,
                                   resume=True, profile=True, hold=True)}
     with switch("VAESNE_BF16", "1"):
-        res["bf16"] = rank_loop_pair(seed, "(b) 2 ranks bf16", [f"data={npz}"], per_step,
-                                     GRAPH_EPOCHS, hold=True)
+        res["bf16"] = rank_loop_pair(seed, "(b) 2 ranks bf16", [f"data={npz}"], per_step, 1,
+                                     hold=True)
     res["accum"] = rank_loop_pair(seed, "(b) 2 ranks accum 2",
                                   ["train.accum_steps=2", f"data={npz}"], per_accum, 1)
     model = flagship(seed)
@@ -3780,7 +3796,7 @@ def phase_dp_graph(seed):
 
     world1 = parallel.make_mesh(["cuda:0"])
     assert world1.backend == "nccl", world1
-    a = parallel.launch(dp_graph_world1_program, world1, seed, per_step)["graph"]
+    a = parallel.launch(dp_graph_world1_program, world1, seed, per_step, npz)["graph"]
     _check_launches("(a) world-1 NCCL graph run", a["table"],
                     tuple(a["steps"] * w for w in per_step), phase=18)
     t_a = time.perf_counter() - t_phase
@@ -3808,11 +3824,12 @@ def phase_dp_graph(seed):
 
     tp = parallel.make_mesh(["cuda:0", "cuda:0"], data=1, model=2)
     tp_lines = parallel.launch(tp_step_loop_program, tp, seed, npz)
-    for label, lines, want in (("1x2 tensor parallel train_photospectra", tp_lines,
-                                "copy_to_model, reduce_from_model"),
-                               ("2x1 train_contrastive", b["contrastive"], "gather_events")):
-        log(18, f"(c) {label}: {lines}")
-        assert len(lines) == 1 and f"runs {want} inside" in lines[0], (label, lines)
+    log(18, f"(c) 1x2 tensor parallel train_photospectra: {tp_lines}")
+    assert len(tp_lines) == 1 and "runs copy_to_model, reduce_from_model inside" in tp_lines[0], (
+        tp_lines)
+    log(18, f"(c) 2x1 train_contrastive: {b['contrastive']} (no step-loop line: the graph "
+            f"splits its step at InfoNCE's gather, phase 19)")
+    assert not b["contrastive"], b["contrastive"]
     t_c = time.perf_counter() - t_phase - t_a - t_b
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3846,6 +3863,87 @@ def phase_dp_graph(seed):
                 for name, c in (("attention_fwd_dropout", "K1 rate>0"), ("attention_bwd", "K2"),
                                 ("laplace_fwd", "K3"), ("laplace_bwd", "K4"))}},
             worst["fp32"])
+
+
+# -- train_contrastive's data-parallel CUDA graph (the step split at InfoNCE's gather) -
+
+def dp_contrastive_program(seed, npz):
+    """Phase 19 (a)-(c) on both ranks of the 2x1 gloo mesh: ``loop_pair``
+    of train_contrastive for each configuration, then the time of each of
+    a step's eager collectives, all-reduces of buffers of their sizes (the
+    gathered projections and their gradients, [B, proj_dim] in fp32; the
+    packed gradients and loss)."""
+    mesh = parallel.current_mesh()
+    cfg = ContrastiveConfig()
+    selfattn = parse_overrides(cfg, ["model.selfattn=true"])
+    half = B_CONTRA // mesh.data
+    on_mesh, sa = f"train.mesh={mesh.data}x{mesh.model}", "model.selfattn=true"
+    per_step = contrastive_step_prediction(selfattn)
+
+    def pair(label, argv, want, epochs, **kw):
+        return loop_pair(seed, label, train_contrastive.main, [*argv, on_mesh], want, half,
+                         epochs, phase=19, length=CONTEXT, **kw)
+
+    res = {"fp32": pair("(a) selfattn fp32", [sa], per_step, GRAPH_EPOCHS, profile=True,
+                        resume=True, hold=True)}
+    with switch("VAESNE_BF16", "1"):
+        res["bf16"] = pair("(a) selfattn bf16", [sa, f"data={npz}"], per_step, 1, hold=True)
+    pair("(b) default towers", [f"data={npz}"], contrastive_step_prediction(cfg), 1)
+    micro = parse_overrides(selfattn, [f"train.batch_size={B_CONTRA // 2}"])
+    pair("(b) selfattn accum 2", [sa, "train.accum_steps=2", f"data={npz}"],
+         tuple(2 * w for w in contrastive_step_prediction(micro)), 1)
+    numel = sum(p.numel() for p in train_contrastive.build_model(selfattn).parameters())
+    sizes = [B_CONTRA * cfg.proj_dim] * 4 + [numel + 1]
+    res["collectives_ms"] = all_ranks([gloo_all_reduce_ms(n) for n in sizes])
+    return res, sizes
+
+
+def phase_dp_contrastive(seed):
+    """Phase 19: train_contrastive at train.mesh=2 on two gloo ranks sharing
+    the card, each (micro)batch's step as CUDA graphs of the towers, the
+    InfoNCE head and the towers' backward with the gather's all-reduces
+    (and the gradient all-reduce) eager between them, against the DDP step
+    loop. Returns the keys it adds to the kernels line and the worst fp32
+    K1/K2 errors on the ranks' replayed inputs."""
+    t_phase = time.perf_counter()
+    parallel.mesh.LAUNCH_TIMEOUT, parallel.mesh.GROUP_TIMEOUT = 600.0, 300.0
+    torch.cuda.empty_cache()
+    npz = small_dataset(seed)
+    two = parallel.make_mesh(["cuda:0", "cuda:0"])
+    assert two.backend == "gloo", two
+    res, sizes = parallel.launch(dp_contrastive_program, two, seed, npz)
+    selfattn = parse_overrides(ContrastiveConfig(), ["model.selfattn=true"])
+    per_step = contrastive_step_prediction(selfattn)
+    launches, worst = {}, {}
+    for key in ("fp32", "bf16"):
+        graph = res[key]["graph"]
+        table = graph["table"]
+        launches[key] = _check_launches(f"(a) selfattn {key} graph run", table,
+                                        tuple(graph["steps"] * w for w in per_step), phase=19)
+        worst[key] = _check_masks(f"(a) {key}, the last replayed step", table, phase=19,
+                                  length=CONTEXT)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    g, e = res["fp32"]["graph"], res["fp32"]["eager"]
+    log(19, f"(c) two ranks on one card, not a scaling number; on {smi}")
+    log(19, f"(c) train_contrastive model.selfattn=true, B = {B_CONTRA}, {B_CONTRA // 2} events "
+            f"a rank, fp32, rank 0: graph {g['rate']:.1f} against the DDP step loop "
+            f"{e['rate']:.1f} samples/s a rank ({g['rate'] / e['rate']:.2f}x); rank 0's kernels "
+            f"busy {g['busy']:.1%} against {e['busy']:.1%} of epoch 3; peak memory "
+            f"{g['peak']:.0f} against {e['peak']:.0f} MiB")
+    step_ms = 1e3 * (B_CONTRA // 2) / g["rate"]
+    ms = [max(row[i] for row in res["collectives_ms"]) for i in range(len(sizes))]
+    names = ("gather z1", "gather z2", "gather backward z1", "gather backward z2",
+             "gradient all-reduce")
+    log(19, "(c) eager collectives of a step, gloo through the host, median ms (worst rank): "
+            + ", ".join(f"{n} ({k} fp32) {t:.3f}" for n, k, t in zip(names, sizes, ms))
+            + f"; together {sum(ms):.3f} ms, {sum(ms) / step_ms:.1%} of the graph's "
+              f"{step_ms:.3f} ms a step (rank 0, epoch 2)")
+    log(19, f"phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    fp32 = {r: dict(zip(COUNTERS, row)) for r, row in enumerate(launches["fp32"])}
+    return ({name: {f"launches_graph_dp_contrastive_rank{r}": fp32[r][c] for r in fp32}
+             for name, c in (("attention_fwd_dropout", "K1 rate>0"), ("attention_bwd", "K2"))},
+            tuple(max(w[i] for w in worst.values()) for i in (0, 1)))
 
 
 def epoch_profiler():
@@ -3993,6 +4091,10 @@ def main(argv=None):
     dp_graph_extra, (err_f, err_b) = phase_dp_graph(args.seed)
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], err_f)
     errs["attention_bwd"] = max(errs["attention_bwd"], err_b)
+    torch.cuda.empty_cache()
+    dp_contrastive_extra, (err_f, err_b) = phase_dp_contrastive(args.seed)
+    errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], err_f)
+    errs["attention_bwd"] = max(errs["attention_bwd"], err_b)
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, bound16, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -4057,7 +4159,10 @@ def main(argv=None):
     # train_photospectra's 3 epochs under the CUDA graph of the step
     # (launches_graph; K1 rate 0: none), and phase 18's: rank 0's launches
     # of the same 3 epochs under the data-parallel graph on two gloo ranks
-    # (launches_graph_dp; each rank's checked equal). The Laplace
+    # (launches_graph_dp; each rank's checked equal), and phase 19's: each
+    # rank's launches of train_contrastive model.selfattn=true's 3 fp32
+    # epochs under its data-parallel graph (launches_graph_dp_contrastive_
+    # rank{0,1}). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4
@@ -4087,7 +4192,7 @@ def main(argv=None):
              **image_extra.get(r[0], {}), **contrastive_extra.get(r[0], {}),
              **multi_extra.get(r[0], {}), **extras_extra.get(r[0], {}),
              **switches_extra.get(r[0], {}), **graph_extra.get(r[0], {}),
-             **dp_graph_extra.get(r[0], {}),
+             **dp_graph_extra.get(r[0], {}), **dp_contrastive_extra.get(r[0], {}),
              **({"bound_ms_bf16": bf16_bounds[r[0]]} if r[0] in bf16_bounds else {}))
         for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@ under a mesh) on gloo ranks on the CPU: its three stages (the gradients,
 the all-reduce, the update) against the DDP step loop bitwise, against the
 JAX package's scanned epoch on two devices, the seeds a replay would write
 on each rank against the eager DDP step's, ``train.scan_epoch`` through a
-driver at ``train.mesh=2`` and its resume, and the meshes and objectives
-whose step runs a collective inside it, which keep the step loop.
+driver at ``train.mesh=2`` and its resume, the tensor-parallel mesh whose
+step runs a collective inside it, which keeps the step loop, and
+``train_contrastive``, whose gather the graph splits its step at.
 
 On the CPU the stages run eagerly at every step; the graphs and their
 replays run on the card only (``tests/test_torch_cuda.py`` and
@@ -233,15 +234,28 @@ def test_the_driver_writes_one_checkpoint_under_the_dp_graph_and_resumes(npz, tm
 @pytest.mark.parametrize("case", ["tensor parallel", "contrastive"])
 def test_a_collective_inside_the_step_keeps_the_step_loop(npz, tmp_path, capfd, case):
     """Under a 1x2 mesh the tensor-parallel layers all-reduce inside the
-    step, and ``train_contrastive`` at ``train.mesh=2`` gathers the events
-    for InfoNCE inside it: the first step counts those collectives, the
-    later ones run the step loop, and the driver prints which collective
-    kept it there."""
+    step: the first step counts those collectives, the later ones run the
+    step loop, and the driver prints which collective kept it there.
+    ``train_contrastive`` at ``train.mesh=2`` gathers the events for InfoNCE
+    inside its step too, but the graph splits the step at the gather and
+    runs its all-reduces between the stages: no step-loop line, and one
+    epoch resumed under the graph to the second writes bitwise the
+    checkpoint of two epochs of the DDP step loop."""
     if case == "tensor parallel":
         _train(train_photometry, npz, tmp_path, "1x2")
-        want = "copy_to_model, reduce_from_model"
-    else:
-        _train(train_contrastive, npz, tmp_path, "2", "proj_dim=3")
-        want = "gather_events"
-    lines = [line for line in capfd.readouterr().out.splitlines() if "step loop" in line]
-    assert len(lines) == 1 and f"runs {want} inside" in lines[0], lines
+        lines = [line for line in capfd.readouterr().out.splitlines() if "step loop" in line]
+        assert len(lines) == 1 and "runs copy_to_model, reduce_from_model inside" in lines[0], lines
+        return
+    loop, loop_losses = _train(train_contrastive, npz, tmp_path / "loop", "2", "proj_dim=3",
+                               "train.scan_epoch=false")
+    _train(train_contrastive, npz, tmp_path / "graph", "2", "proj_dim=3", "train.epochs=1")
+    graph, graph_losses = _train(train_contrastive, npz, tmp_path / "graph", "2", "proj_dim=3",
+                                 "train.resume=true")
+    assert "step loop" not in capfd.readouterr().out
+    assert graph_losses == loop_losses and len(loop_losses) == 2
+    saved = [torch.load(path, weights_only=True) for run in ("loop", "graph")
+             for path in (tmp_path / run).glob("goldstein_contrastive_*/state.pt")]
+    assert len(saved) == 2
+    _same_state(*saved)
+    _same_state(graph.state_dict(), loop.state_dict())
+    assert saved[0]["step"] == graph.step > 0

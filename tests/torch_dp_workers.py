@@ -80,15 +80,15 @@ def train_steps(model, batch, steps, K=2, reduction="sum", pinned=True, accum_st
 
 
 def scan_epochs(model, data, epochs, batch_size, K=2, reduction="sum", accum_steps=1,
-                pinned=True, shared=False, device="cpu", skew=0.0, frozen=None):
+                pinned=True, shared=False, device="cpu", skew=0.0, frozen=None, loss_fn=None):
     """``epochs`` epochs of ``make_scan_epoch`` on this rank's mesh with
     ``graph=True`` (the data-parallel graph's stages; eager on the CPU) and
     ``graph=False`` (the DDP step loop), each from a copy of ``model``
     whose parameters this rank first moves by rank·``skew`` (both start
     from rank 0's), the parameters whose names start with ``frozen``
-    frozen. For each: the epoch losses, the state dict on the CPU and
-    every rank's parameters after the run, and the epoch function's
-    ``step_loop_reason``."""
+    frozen, the loss ``loss_fn`` (None: m-IWAE at ``K``). For each: the
+    epoch losses, the state dict on the CPU and every rank's parameters
+    after the run, and the epoch function's ``step_loop_reason``."""
     import torch.distributed as dist
 
     from vaesne_tpu_torch.parallel.mesh import to_host
@@ -105,8 +105,8 @@ def scan_epochs(model, data, epochs, batch_size, K=2, reduction="sum", accum_ste
         trainable = None if frozen is None else {
             name: not name.startswith(frozen) for name, _ in m.named_parameters()}
         state = ttr.TrainState.create(m, opt, seed=0, device=device, trainable=trainable)
-        run = ttr.make_scan_epoch(m, opt, tobj.as_loss(tobj.m_iwae, K=K), accum_steps,
-                                  reduction, device=device, mesh=mesh, graph=graph)
+        run = ttr.make_scan_epoch(m, opt, loss_fn or tobj.as_loss(tobj.m_iwae, K=K),
+                                  accum_steps, reduction, device=device, mesh=mesh, graph=graph)
         losses = []
         with pinned_noise(shared) if pinned else contextlib.nullcontext():
             for epoch in range(epochs):
@@ -168,6 +168,16 @@ def dp_graph_checks(cases, shared_case, site_case):
     """``scan_epochs`` for each of ``cases`` and for ``shared_case``, then
     ``dp_step_sites`` for ``site_case``, in one launch."""
     return [scan_epochs(*c) for c in cases], scan_epochs(*shared_case), dp_step_sites(*site_case)
+
+
+def contrastive_scan_epochs(cases):
+    """``scan_epochs`` of InfoNCE (``objectives.as_loss(neg_info_nce)``,
+    a batch mean) for each of ``cases``, (model, data, epochs, batch_size,
+    accum_steps, skew), in one launch."""
+    loss_fn = tobj.as_loss(tobj.neg_info_nce, temperature=0.1)
+    return [scan_epochs(model, data, epochs, batch_size, None, "mean", accum_steps, False,
+                        device="cpu", skew=skew, loss_fn=loss_fn)
+            for model, data, epochs, batch_size, accum_steps, skew in cases]
 
 
 def info_nce_grads(model, batch, dtype=torch.float32):

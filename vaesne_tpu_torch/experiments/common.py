@@ -212,10 +212,11 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     step after a warm-up step and kept across epochs (the capture-ready step
     eagerly on the CPU); false runs the step loop, the same run bitwise.
     Under a data-parallel ``train.mesh`` each rank's step is two graphs,
-    the gradients and the update, around the eager gradient all-reduce;
-    where a collective runs inside the step (a tensor-parallel mesh,
-    InfoNCE's gather) the step loop runs from the second step on, and a
-    line says which collective kept it. Augmentation, the save,
+    the gradients and the update, around the eager gradient all-reduce
+    (InfoNCE's step also splits at its gather, whose all-reduces run
+    between graphs); where a collective runs inside a graph's part of the
+    step (a tensor-parallel mesh) the step loop runs from the second step
+    on, and a line says which collective kept it. Augmentation, the save,
     ``callback`` and the progress record stay outside the graph, and a
     save between epochs reads the live weights.
 

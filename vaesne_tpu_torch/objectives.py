@@ -2,8 +2,10 @@
 the regression MSE.
 
 Counterparts of ``vaesne_tpu/objectives.py`` (``grid_loglik``, ``elbo``,
-``m_elbo``, ``m_iwae_terms``, ``m_iwae``, ``neg_info_nce``, ``mse``). Every objective returns a
-quantity to MAXIMISE; the train step minimises its negation. The reductions
+``m_elbo``, ``m_iwae_terms``, ``m_iwae``, ``neg_info_nce``, ``mse``), and
+``gathered``, InfoNCE split at its gather for a data-parallel CUDA graph.
+Every objective returns a quantity to MAXIMISE; the train step minimises
+its negation. The reductions
 are the JAX package's (``elbo``: mean over K·B; ``m_iwae``: log-mean-exp
 over the (modality·K) axis, then SUM over the batch), because they set the
 effective learning rate.
@@ -18,7 +20,7 @@ eval mode.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -138,6 +140,23 @@ def _dropout_seed(model, seed: Optional[int]) -> Optional[int]:
     return seed
 
 
+def _info_nce_towers(model, x, seed: Optional[int] = None):
+    """InfoNCE's towers: the two projections (z1, z2) = model(x) of this
+    rank's events."""
+    return model(x, seed=_dropout_seed(model, seed))
+
+
+def _info_nce_head(z1: torch.Tensor, z2: torch.Tensor, temperature: float = 0.07) -> torch.Tensor:
+    """InfoNCE's head over the gathered projections: each row normalised
+    (norm clipped at 1e-12), logits = z1·z2ᵀ / temperature,
+    −(CE(logits, I) + CE(logitsᵀ, I))/2, each CE a mean over the batch."""
+    z1 = z1 / torch.linalg.vector_norm(z1, dim=-1, keepdim=True).clamp_min(1e-12)
+    z2 = z2 / torch.linalg.vector_norm(z2, dim=-1, keepdim=True).clamp_min(1e-12)
+    logits = z1 @ z2.T / temperature
+    labels = torch.arange(z1.shape[0], device=z1.device)
+    return -(F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)) / 2.0
+
+
 def neg_info_nce(model, x, temperature: float = 0.07, *,
                  seed: Optional[int] = None) -> torch.Tensor:
     """Negated symmetric InfoNCE over a two-tower model's projections
@@ -147,13 +166,41 @@ def neg_info_nce(model, x, temperature: float = 0.07, *,
     several event shards the logits are the global batch's: both
     projections are gathered from every rank (``partition.gather_events``),
     as the JAX package's one program sees the whole batch."""
-    z1, z2 = model(x, seed=_dropout_seed(model, seed))
+    z1, z2 = _info_nce_towers(model, x, seed)
     z1, z2 = partition.gather_events(z1), partition.gather_events(z2)
-    z1 = z1 / torch.linalg.vector_norm(z1, dim=-1, keepdim=True).clamp_min(1e-12)
-    z2 = z2 / torch.linalg.vector_norm(z2, dim=-1, keepdim=True).clamp_min(1e-12)
-    logits = z1 @ z2.T / temperature
-    labels = torch.arange(z1.shape[0], device=z1.device)
-    return -(F.cross_entropy(logits, labels) + F.cross_entropy(logits.T, labels)) / 2.0
+    return _info_nce_head(z1, z2, temperature)
+
+
+class Gathered(NamedTuple):
+    """An objective split where it gathers its model's outputs over the
+    events: ``towers(model, x, seed)`` gives this rank's outputs (a tuple of
+    [local events, ...] tensors), and ``head(*outputs)`` the objective of
+    the outputs gathered along dim 0 (``partition.gather_events``), which
+    is the objective itself."""
+
+    towers: Callable
+    head: Callable
+
+
+# each objective whose one collective gathers its model's outputs, with its
+# towers and head
+_GATHERED = {neg_info_nce: (_info_nce_towers, _info_nce_head)}
+
+
+def gathered(loss_fn: Callable) -> Optional[Gathered]:
+    """``loss_fn``'s split (``Gathered``) where it is ``as_loss`` of an
+    objective that gathers its model's outputs (``neg_info_nce``), its
+    keyword arguments going to the head; None for any other loss. A
+    data-parallel train step runs the gather's all-reduces between CUDA
+    graphs of the towers and the head (``training.make_scan_epoch``)."""
+    if not (isinstance(loss_fn, functools.partial) and loss_fn.func is _seeded):
+        return None
+    objective, kwargs = loss_fn.args
+    split = _GATHERED.get(objective)
+    if split is None:
+        return None
+    towers, head = split
+    return Gathered(towers, functools.partial(head, **kwargs))
 
 
 def mse(model, x, y: torch.Tensor, *, seed: Optional[int] = None) -> torch.Tensor:

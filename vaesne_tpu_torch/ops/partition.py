@@ -31,7 +31,11 @@ The collectives are autograd functions: ``copy_to_model`` and
 row-parallel layer, ``gather_events`` assembles the ranks' event shards on
 every rank with one all-reduce into a zeroed buffer (gloo on CUDA tensors
 offers all-reduce and broadcast alone). ``collectives_reached`` counts them
-by name, so a train step can tell whether a collective runs inside it.
+by name, so a train step can tell whether a collective runs inside a part
+of it that a CUDA graph would hold. A data-parallel train step that splits
+its objective at the gather (``objectives.gathered``) runs the gather's
+all-reduces itself, eagerly between its graphs, through ``sum_events``
+(counted as ``gather_events``) in the gather's ``wide_dtype``.
 """
 
 from __future__ import annotations
@@ -193,7 +197,7 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     return _ReduceFromModel.apply(x, _ACTIVE.model_group)
 
 
-def _wide(dtype: torch.dtype) -> torch.dtype:
+def wide_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype a collective sums ``dtype`` in: fp64 stays, other floats
     go to fp32, integers and booleans to int64."""
     if dtype == torch.float64:
@@ -205,7 +209,7 @@ def _assemble(t: torch.Tensor, axis: int, rank: int, n: int, group, name: str) -
     shape = list(t.shape)
     size = shape[axis]
     shape[axis] = size * n
-    out = torch.zeros(shape, dtype=_wide(t.dtype), device=t.device)
+    out = torch.zeros(shape, dtype=wide_dtype(t.dtype), device=t.device)
     out.narrow(axis, rank * size, size).copy_(t)
     return _all_reduce(out, group, name).to(t.dtype)
 
@@ -224,7 +228,7 @@ class _GatherEvents(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         s, size = ctx.shard, grad.shape[ctx.axis] // ctx.shard.n_data
-        total = _all_reduce(grad.to(_wide(grad.dtype)).contiguous().clone(), s.data_group,
+        total = _all_reduce(grad.to(wide_dtype(grad.dtype)).contiguous().clone(), s.data_group,
                             "gather_events")
         return total.narrow(ctx.axis, s.data_rank * size, size).to(grad.dtype), None, None
 
@@ -233,8 +237,18 @@ def gather_events(t: torch.Tensor, axis: int = 0, shard: Optional[Shard] = None)
     """``t`` ([..., local events, ...] on ``axis``) with every rank's
     events in rank order, on every rank of the data group (differentiable;
     assembled in fp32, fp64 or int64). ``t`` itself where no event axis is
-    split."""
+    split. Its forward and its backward each run one all-reduce; the
+    data-parallel CUDA graph of a step runs them between its graphs
+    instead (``training._GatheredStep``, with ``sum_events``)."""
     s = _ACTIVE if shard is None else shard
     if s is None or s.n_data == 1:
         return t
     return _GatherEvents.apply(t, axis, s)
+
+
+def sum_events(t: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """``gather_events``' all-reduce of ``t`` over the data group, in place
+    and counted as ``gather_events``: of the zeroed buffer holding this
+    rank's events in the forward, of the gradient of the gathered tensor in
+    the backward, each in ``wide_dtype``."""
+    return _all_reduce(t, shard.data_group, "gather_events")

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, NamedTuple, Optional, Sequence,
                     Tuple)
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import objectives
 from .nn.layers import (TransformerStack, autocast, cudnn_fp32_deterministic, no_autocast_cache,
                         resolve_precision)
 from .ops import counters, dropout_bits, partition
@@ -220,20 +222,26 @@ def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tens
     return total
 
 
-def _accumulate(neg_loss_fn, model: nn.Module, batch, seed: int, accum_steps: int,
-                no_sync=None) -> torch.Tensor:
-    """``accumulate_gradients``' microbatch loop: the gradients and the
-    losses summed over the microbatches."""
+def _microbatch(batch, seed: int, i: int, accum_steps: int):
+    """Microbatch ``i`` of ``accum_steps`` equal parts of ``batch``, and its
+    seed ``fold_in(seed, i)``."""
     n = _leaves(batch)[0].shape[0]
     if n % accum_steps != 0:
         raise ValueError(f"batch size {n} not divisible by accum_steps {accum_steps}")
     size = n // accum_steps
+    return _tree_map(lambda a: a[i * size:(i + 1) * size], batch), fold_in(seed, i)
+
+
+def _accumulate(neg_loss_fn, model: nn.Module, batch, seed: int, accum_steps: int,
+                no_sync=None) -> torch.Tensor:
+    """``accumulate_gradients``' microbatch loop: the gradients and the
+    losses summed over the microbatches."""
     total = None
     for i in range(accum_steps):
-        micro = _tree_map(lambda a: a[i * size:(i + 1) * size], batch)
+        micro, micro_seed = _microbatch(batch, seed, i, accum_steps)
         hold = no_sync is not None and i < accum_steps - 1
         with no_sync() if hold else contextlib.nullcontext():
-            loss = neg_loss_fn(model, micro, fold_in(seed, i))
+            loss = neg_loss_fn(model, micro, micro_seed)
             loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     return total
@@ -424,6 +432,11 @@ class _DataParallelStep:
                 loss = _accumulate(self.neg_loss, self.model, batch, seed, self.accum_steps)
                 if self.mean:
                     loss = loss * (1.0 / self.accum_steps)
+        self._pack(state, loss)
+
+    def _pack(self, state: TrainState, loss: torch.Tensor) -> None:
+        """The trainable gradients and ``loss`` into the buffer, the
+        gradients times 1/n for a batch-mean objective."""
         grads = [p.grad for p in state.trainable_parameters()]
         if any(g is None for g in grads):
             raise RuntimeError("a trainable parameter took no gradient: under a mesh every "
@@ -454,6 +467,103 @@ class _DataParallelStep:
         loss = loss / self.shard.n_data if self.mean else loss.clone()
         _clip_and_update(state, self.optimizer, self.shard)
         return loss
+
+
+class _GatheredStep(_DataParallelStep):
+    """``_DataParallelStep`` for an objective that gathers its model's
+    outputs over the data group (``objectives.gathered``: InfoNCE over the
+    global batch). Its step loop runs the gather's two all-reduces inside
+    the forward and the backward; here each (micro)batch's step splits at
+    them, and they run eagerly between graphs, as the gradient all-reduce
+    does:
+
+    (i) the towers: the gradients zeroed (first microbatch), this rank's
+        outputs of its slice under the shard, kept with their autograd
+        graph, each placed at this rank's rows of a zeroed buffer of the
+        gathered shape in the gather's wide dtype;
+    (ii) the all-reduce of each buffer (eager): the gather's forward;
+    (iii) the head: the objective of the buffers cast back, and the
+        gradient of its negation with respect to them, in the wide dtype;
+    (iv) the all-reduce of each gradient (eager): the gather's backward;
+    (v) this rank's rows of each summed gradient, cast back, through the
+        towers' backward, whose rematerialised blocks draw their dropout
+        again; after the last microbatch the packing of
+        ``_DataParallelStep``'s (i);
+
+    then its all-reduce and update. Each collective does what
+    ``partition.gather_events`` does in the step loop, on the same values,
+    so the stages give the step loop bitwise. The stages keep their
+    outputs and buffers, which the next stage (and, on the card, its
+    graph) reads."""
+
+    def __init__(self, model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
+                 accum_reduction: str, device: torch.device, precision: str, mesh,
+                 split: objectives.Gathered):
+        super().__init__(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                         precision, mesh)
+        self.split, self.device, self.precision, self.mesh = split, device, precision, mesh
+        self.outputs: List[Tuple[torch.Tensor, ...]] = [()] * accum_steps
+        self.gathered: List[List[torch.Tensor]] = [[] for _ in range(accum_steps)]
+        self.gathered_grads: List[List[torch.Tensor]] = [[] for _ in range(accum_steps)]
+        self.losses: List[Optional[torch.Tensor]] = [None] * accum_steps
+
+    def stages(self) -> List[_Stage]:
+        out = []
+        for i in range(self.accum_steps):
+            out += [_Stage(functools.partial(self._towers, i), True),
+                    _Stage(functools.partial(self._sum, self.gathered[i]), False),
+                    _Stage(functools.partial(self._head, i), True),
+                    _Stage(functools.partial(self._sum, self.gathered_grads[i]), False),
+                    _Stage(functools.partial(self._backward, i), True)]
+        return [*out, _Stage(self.reduce, False), _Stage(self.update, True)]
+
+    def _towers(self, i: int, state: TrainState, batch, seed: int) -> None:
+        from .parallel.mesh import shard_batch
+
+        if i == 0:
+            state.optimizer.zero_grad(set_to_none=True)
+        if self.accum_steps > 1:
+            batch, seed = _microbatch(batch, seed, i, self.accum_steps)
+        with autocast(self.precision, self.device), cudnn_fp32_deterministic(), \
+                partition.sharded(self.shard):
+            outs = tuple(self.split.towers(self.model, shard_batch(batch, self.mesh), seed))
+        n, rank = self.shard.n_data, self.shard.data_rank
+        shapes = [((o.shape[0] * n, *o.shape[1:]), partition.wide_dtype(o.dtype)) for o in outs]
+        if [(tuple(b.shape), b.dtype) for b in self.gathered[i]] != shapes:
+            self.gathered[i][:] = [outs[0].new_empty(shape, dtype=dtype) for shape, dtype in shapes]
+            self.gathered_grads[i][:] = [torch.empty_like(b) for b in self.gathered[i]]
+        for buf, o in zip(self.gathered[i], outs):
+            buf.zero_()
+            buf.narrow(0, rank * o.shape[0], o.shape[0]).copy_(o.detach())
+        self.outputs[i] = outs
+
+    def _sum(self, buffers: List[torch.Tensor], state: TrainState, batch, seed: int) -> None:
+        for buf in buffers:
+            partition.sum_events(buf, self.shard)
+
+    def _head(self, i: int, state: TrainState, batch, seed: int) -> None:
+        leaves = [buf.to(o.dtype).detach().requires_grad_()
+                  for buf, o in zip(self.gathered[i], self.outputs[i])]
+        with autocast(self.precision, self.device):
+            neg = -self.split.head(*leaves)
+        for buf, grad in zip(self.gathered_grads[i], torch.autograd.grad(neg, leaves)):
+            buf.copy_(grad)
+        self.losses[i] = neg.detach()
+
+    def _backward(self, i: int, state: TrainState, batch, seed: int) -> None:
+        outs, rank = self.outputs[i], self.shard.data_rank
+        grads = [buf.narrow(0, rank * o.shape[0], o.shape[0]).to(o.dtype)
+                 for buf, o in zip(self.gathered_grads[i], outs)]
+        with cudnn_fp32_deterministic(), partition.sharded(self.shard):
+            torch.autograd.backward(outs, grads)
+        self.outputs[i] = ()
+        if i == self.accum_steps - 1:
+            loss = self.losses[0]
+            for more in self.losses[1:]:
+                loss = loss + more
+            if self.accum_steps > 1 and self.mean:
+                loss = loss * (1.0 / self.accum_steps)
+            self._pack(state, loss)
 
 
 def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
@@ -552,6 +662,11 @@ class _Captured(NamedTuple):
     launches: Dict[str, int]
 
 
+def _generator_sites(tape: SeedTape, start: int) -> int:
+    """The generator sites ``tape`` recorded from site ``start`` on."""
+    return sum(kind == "generator" for kind, _, _ in tape.sites[start:])
+
+
 class _GraphEpoch:
     """``make_scan_epoch``'s epoch on one process or one rank, ``run(state,
     data, generator, batch_size)``: the permutation of ``epoch_batches``,
@@ -559,24 +674,30 @@ class _GraphEpoch:
     the step's ``stages`` on them.
 
     On the card the first step of a geometry runs eagerly on a side stream,
-    its draw sites recorded (``utils.rng.SeedTape``); the next step captures
-    each captured stage once as a ``torch.cuda.CUDAGraph`` (the later ones
-    in the first one's memory pool), and it and every later step are
-    replays: the host recomputes the sites' seeds from the step's seed,
-    re-seeds the graph's generators, writes the kernels' seed words and
-    replays the graphs in order, running an eager stage (a mesh's gradient
-    all-reduce) between them. Parameters and moments update in place. A new
+    its draw sites recorded (``utils.rng.SeedTape``) with the stage that
+    reached each; the next step captures each captured stage once as a
+    ``torch.cuda.CUDAGraph``, in stage order (the later ones in the first
+    one's memory pool), each with the generators its draws take registered,
+    and it and every later step are replays: the host recomputes the sites'
+    seeds from the step's seed, re-seeds the graphs' generators, writes the
+    kernels' seed words and replays the graphs in order, running an eager
+    stage (a mesh's all-reduce) between them. A stage's graph may replay
+    the backward of an earlier stage's forward (``_GatheredStep``): the
+    tensors that forward saved stay in the shared pool until the later
+    capture has used them. Parameters and moments update in place. A new
     graph is captured when the batch geometry, the model's train mode, the
     remat setting, the dropout width, the mesh, the optimizer or its restore
     count (``TrainState.version``) changes. A failed capture raises. On the
     CPU the same stages run eagerly at every step.
 
     Under a mesh ``start`` runs once, before the first step, and the first
-    step counts the layers' collectives (``partition.collectives_reached``):
-    where one runs inside the step (a tensor-parallel layer's all-reduce,
-    InfoNCE's gather of the events), no graph can hold it under gloo, and
-    every later step runs ``loop`` (the step loop's step) instead;
-    ``step_loop_reason`` then names those collectives."""
+    step counts the layers' collectives inside the captured stages
+    (``partition.collectives_reached``; an eager stage's are the step's
+    own): where one runs there (a tensor-parallel layer's all-reduce, the
+    gather of an objective that ``objectives.gathered`` does not split), no
+    graph can hold it under gloo, and every later step runs ``loop`` (the
+    step loop's step) instead; ``step_loop_reason`` then names those
+    collectives."""
 
     def __init__(self, model: nn.Module, stages: List[_Stage], device: torch.device,
                  mesh=None, start=None, loop=None):
@@ -587,6 +708,7 @@ class _GraphEpoch:
         self.key = None      # what the buffers, the warm-up and the graph were made for
         self.buffers = None  # the step's batch leaves, filled in place
         self.warm = None     # the warm-up step's tape
+        self.drawn: List[int] = []  # the warm-up's generator sites, stage by stage
         self.graph: Optional[_Captured] = None
         self.step_loop_reason: Optional[str] = None
 
@@ -637,41 +759,47 @@ class _GraphEpoch:
     def _warm_up(self, state: TrainState, batch, seed: int) -> torch.Tensor:
         """The first step of a geometry, eager (on the card on a side
         stream, as torch asks of a capture's warm-up, its draw sites
-        recorded), the collectives it reaches counted."""
+        recorded), each stage's generator sites and the collectives of the
+        captured stages counted."""
         if self.start is not None:
             self.start()
             self.start = None
-        tape = SeedTape()
-        before = partition.collectives_reached()
+        tape, reached, self.drawn = SeedTape(), set(), []
+        with contextlib.ExitStack() as stack:
+            if self.device.type == "cuda":
+                main = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(main)
+                stack.enter_context(torch.cuda.stream(side))
+                stack.enter_context(recording(tape))  # on the CPU no capture follows
+            for stage in self.stages:
+                before, sites = partition.collectives_reached(), len(tape.sites)
+                loss = stage.fn(state, batch, seed)
+                self.drawn.append(_generator_sites(tape, sites))
+                if stage.captured:
+                    reached.update(name for name, n in partition.collectives_reached().items()
+                                   if n != before.get(name, 0))
         if self.device.type == "cuda":
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side), recording(tape):
-                loss = self._run(state, batch, seed)
             main.wait_stream(side)
             loss.record_stream(main)
-        else:  # no capture follows: nothing to record
-            loss = self._run(state, batch, seed)
-        reached = sorted(name for name, n in partition.collectives_reached().items()
-                         if n != before.get(name, 0))
         if reached:
             if self.loop is None:
-                raise RuntimeError(f"the step ran {', '.join(reached)} outside a mesh")
-            self.step_loop_reason = ", ".join(reached)
+                raise RuntimeError(f"the step ran {', '.join(sorted(reached))} outside a mesh")
+            self.step_loop_reason = ", ".join(sorted(reached))
         self.warm = tape
         return loss
 
     def _capture(self, state: TrainState, batch, seed: int) -> None:
-        """Capture the captured stages: a generator per generator site of
-        the warm-up, registered with the first graph (the draws are the
-        first stage's), and a seed word per kernel seed. The capture runs no
-        kernel, so its launches come off the counters."""
+        """Capture the captured stages in order: a generator per generator
+        site of the warm-up, registered with the graph of the stage that
+        draws from it, and a seed word per kernel seed, which every stage
+        reads (K2 and a rematerialised K1 the word their forward read). The
+        capture runs no kernel, so its launches come off the counters."""
         warm = self.warm
         generators = [torch.Generator(device=self.device) for _ in warm.paths("generator")]
         words = torch.zeros(len(warm.paths("word")), dtype=torch.int32, device=self.device)
         tape = SeedTape(generators, words)
-        graphs, pool = [], None
+        graphs, pool, registering = [], None, iter(generators)
         # a mesh's process group polls its work from threads of its own,
         # whose CUDA calls must not void this thread's capture
         mode = "global" if self.mesh is None else "thread_local"
@@ -679,20 +807,22 @@ class _GraphEpoch:
         # autocast's cached casts would outlive the capture; uncached, the
         # casts give the same values
         with recording(tape), no_autocast_cache():
-            for stage in self.stages:
+            for stage, drawn in zip(self.stages, self.drawn):
                 if not stage.captured:
+                    if drawn:
+                        raise RuntimeError("an eager stage of the step draws random numbers, "
+                                           "which no graph re-seeds")
                     graphs.append(None)
                     continue
                 graph = torch.cuda.CUDAGraph()
-                drawn = len(tape.sites)
-                if pool is None:
-                    for g in generators:
-                        graph.register_generator_state(g)
+                for _ in range(drawn):
+                    graph.register_generator_state(next(registering))
+                sites = len(tape.sites)
                 with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
                     loss = stage.fn(state, batch, seed)
-                if pool is not None and len(tape.sites) != drawn:
-                    raise RuntimeError("a captured stage after the first one draws random "
-                                       "numbers")
+                if _generator_sites(tape, sites) != drawn:
+                    raise RuntimeError("a captured stage drew from other generator sites than "
+                                       "in its warm-up step")
                 pool = graph.pool() if pool is None else pool
                 graphs.append(graph)
         after = counters.launch_counts()
@@ -737,11 +867,15 @@ def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     of each step's batch; with ``graph=True`` the step is two graphs, the
     gradients and the update, around the gradient all-reduce, which runs
     eagerly between their replays (``_DataParallelStep``, DDP's arithmetic,
-    bitwise the step loop on two ranks), unless a collective runs inside
-    the step (tensor-parallel layers, InfoNCE's gather): then the step loop
-    runs from the second step on, and the function's ``step_loop_reason``
-    names the collective. ``graph=False``: ``train_epoch`` over
-    ``make_train_step`` (DDP under ``mesh``)."""
+    bitwise the step loop on two ranks). An objective that gathers its
+    model's outputs over the ranks (``objectives.gathered``: InfoNCE's
+    global batch) splits its backward at the gather too, whose all-reduces
+    run eagerly between graphs of the towers, the head and the towers'
+    backward (``_GatheredStep``). A collective inside a captured stage (a
+    tensor-parallel layer's, an unsplit objective's gather) keeps the step
+    loop from the second step on, and the function's ``step_loop_reason``
+    names it. ``graph=False``: ``train_epoch`` over ``make_train_step``
+    (DDP under ``mesh``)."""
     if graph and mesh is None:
         device = resolve_device(device)
         body = _step_body(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
@@ -751,8 +885,11 @@ def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                            precision, mesh)
     if graph:
         device = resolve_device(device)
-        split = _DataParallelStep(model, optimizer, loss_fn, accum_steps, accum_reduction,
-                                  device, resolve_precision(precision), mesh)
+        args = (model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                resolve_precision(precision), mesh)
+        gathered = objectives.gathered(loss_fn) if mesh.data > 1 else None
+        split = (_DataParallelStep(*args) if gathered is None
+                 else _GatheredStep(*args, gathered))
         return _GraphEpoch(model, split.stages(), device, mesh, split.start, step)
 
     def run(state: TrainState, data, generator: torch.Generator,
