@@ -1224,13 +1224,13 @@ def phase_drivers(seed):
 
     reset_counts()
     mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
-    captured = training.captures
+    captured = counters.captures
     state_a, losses_a = train_photospectra.main(
         driver_args(seed, dir_a, f"train.epochs={DRIVER_EPOCHS}", "train.save_every=1"),
         callback=on_epoch)
     launches_a = dict(zip(COUNTERS, kernel_counts()))
     log(10, f"(a) main path (drivers): launches {launches_a}; CUDA graphs of the step "
-            f"captured {training.captures - captured} (train.scan_epoch=true)")
+            f"captured {counters.captures - captured} (train.scan_epoch=true)")
     assert len(losses_a) == DRIVER_EPOCHS and all(v > 0 for v in launches_a.values())
     rates = [B_DRIVER * steps / t for t, steps in epochs]
     med_rate = statistics.median(rates[1:])
@@ -3023,7 +3023,7 @@ def phase_bf16_driver(seed, fp32_rate, fp32_busy):
     with switch("VAESNE_BF16", "1"):
         reset_counts()
         mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
-        captured = training.captures
+        captured = counters.captures
         with kernel_inputs(record):
             state_a, losses_a = train_photospectra.main(
                 driver_args(seed, dir_a, f"train.epochs={BF16_EPOCHS}", "train.save_every=1"),
@@ -3031,7 +3031,7 @@ def phase_bf16_driver(seed, fp32_rate, fp32_busy):
         launches = dict(zip(COUNTERS, kernel_counts()))
         # the CUDA graph's replays rerun K3 without grid_loglik's Python: it
         # runs in the warm-up step and the capture of each graph alone
-        captured = training.captures - captured
+        captured = counters.captures - captured
         python_steps = 2 * captured if captured else launches["K3"] // per_step[3]
         state_b, losses_b = train_photospectra.main(driver_args(
             seed, dir_b, f"train.epochs={BF16_EPOCHS}", "train.resume=true", "train.save_every=1"))
@@ -3437,7 +3437,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
         store = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        captured, start = training.captures, kernel_counts()
+        captured, start = counters.captures, kernel_counts()
         mark.update(t=time.perf_counter(), counts=start, step=0)
         with capture_graph_kernel_input(store, length) if hold and name == "graph" else (
                 contextlib.nullcontext()):
@@ -3445,7 +3445,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
                                                        "train.save_every=1",
                                                        f"train.scan_epoch={scan}")],
                                  callback=on_epoch)
-        captured = training.captures - captured
+        captured = counters.captures - captured
         launches = tuple(b - a for a, b in zip(start, kernel_counts()))
         assert captured == (name == "graph"), (name, captured)  # one graph, kept across epochs
         numbers = dict(peak=torch.cuda.max_memory_allocated() / 2**20, losses=losses,

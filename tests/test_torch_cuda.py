@@ -506,6 +506,51 @@ def test_graph_replays_are_the_eager_steps(cuda):
     assert g_launches == e_launches and len(set(e_launches)) == 1
 
 
+def test_graph_epoch_counts_one_capture_and_its_spans_lie_on_the_device_clock(cuda, tmp_path):
+    """Three one-step epochs of make_scan_epoch (the warm-up step, the
+    capture and its replay, a replay) add one to ``counters.captures``, at
+    the capture alone; a fourth, profiled, records a replayed step's spans,
+    and every device operation of it lies inside its ``train.epoch``
+    annotation of the Chrome trace, whose loss read waits for them."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaesne_tpu_torch.ops import counters
+    from vaesne_tpu_torch.training import make_scan_epoch
+    from vaesne_tpu_torch.utils import profiling
+
+    batch = tuple(tuple(torch.from_numpy(a).to(cuda) for a in m) for m in _batch(4, 60, 300))
+    model = _graph_model()
+    opt = adamw(1e-3)
+    state = TrainState.create(model, opt, seed=0)
+    epoch = make_scan_epoch(model, opt, lambda m, b, s: objectives.m_iwae(m, b, K=2, seed=s))
+    captured = []
+    for i in range(3):
+        before = counters.captures
+        state, _ = epoch(state, batch, torch.Generator().manual_seed(i), 4)
+        captured.append(counters.captures - before)
+    assert captured == [0, 1, 0]
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch(state, batch, torch.Generator().manual_seed(3), 4)
+    records = profiling.spans()
+    profiling.clear_spans()
+    assert sorted(r.name for r in records) == sorted(
+        ["train.epoch", "train.order", "train.step", "train.gather", "train.reseed",
+         "train.replay", "train.loss_read"])
+    (step,) = [r for r in records if r.name == "train.step"]
+    assert step.attrs == {"kind": "replay"}
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    (ep,) = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == "train.epoch"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    assert device
+    for e in device:
+        assert ep["ts"] <= e["ts"] and e["ts"] + e["dur"] <= ep["ts"] + ep["dur"], e["name"]
+
+
 def test_graph_of_a_world1_dp_step_is_the_ddp_step_loop(cuda):
     """make_scan_epoch under a world-1 NCCL mesh (a spawned rank on this
     card): the step as two CUDA graphs, the gradients and the update, with

@@ -19,6 +19,13 @@ correlated across the test set. Every entry point runs on ``device``, by
 default the card (it raises without one unless ``device="cpu"``). Under a
 ``mesh`` (inside ``parallel.launch``) each chunk's events are split over
 the ranks and the outputs assembled on every rank.
+
+While a profiler runs, the harness records spans (``utils.profiling.span``):
+``eval.suite`` (``mmvae_reconstruction_suite``, with its ``seed``), an
+``eval.chunk`` per chunk (``index``) holding ``eval.forward`` (the model's
+calls, which enqueue the device work), ``eval.wait`` (the wait for it) and
+an ``eval.host_copy`` per output copied to the host; and ``eval.metrics``
+(``aggregate_metrics`` in ``evaluate_mmvae``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from ..nn.layers import autocast, resolve_precision
 from ..ops import partition
 from ..parallel.mesh import Mesh, rank_device, shard_batch, shard_of
 from ..training import resolve_device, to_device
+from ..utils.profiling import span
 from ..utils.rng import device_generator, fold_in
 from .metrics import aggregate_metrics
 
@@ -108,7 +116,7 @@ def batched_apply(
         chunk = _map(lambda a: a[start:start + chunk_size], data)
         if mesh is not None:
             chunk, shard = shard_batch(chunk, mesh), shard_of(mesh)
-        with partition.sharded(shard), autocast(precision):
+        with span("eval.chunk", index=ci), partition.sharded(shard), autocast(precision):
             out = fn(chunk) if seed is None else fn(chunk, fold_in(seed, ci))
         if mesh is not None:
             axes = _map(lambda _: out_axes, out) if isinstance(out_axes, int) else out_axes
@@ -134,7 +142,18 @@ def batched_apply(
 def _host(t: torch.Tensor) -> np.ndarray:
     """``t`` as host numpy; a bf16 output (``VAESNE_BF16``) as float32 with
     the same values, as numpy has no bfloat16 without JAX's ml_dtypes."""
-    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    with span("eval.host_copy"):
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _on_host(out, device: torch.device):
+    """A chunk's outputs (a tensor or a dict of them) as host numpy: the
+    wait for the chunk's device work (the wait the first copy would make),
+    then a copy each."""
+    with span("eval.wait"):
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+    return _map(_host, out)
 
 
 def _unimodal(model, K: int, predictive: bool, device: torch.device):
@@ -144,8 +163,10 @@ def _unimodal(model, K: int, predictive: bool, device: torch.device):
 
     def run(chunk, chunk_seed):
         with torch.inference_mode():
-            return _host(model.reconstruct(chunk, K, predictive=predictive,
-                                           generator=device_generator(chunk_seed, device)))
+            with span("eval.forward"):
+                out = model.reconstruct(chunk, K, predictive=predictive,
+                                        generator=device_generator(chunk_seed, device))
+            return _on_host(out, device)
     return run
 
 
@@ -178,41 +199,43 @@ def mmvae_reconstruction_suite(
     in eval mode."""
     device = resolve_device(device)
     seed = 0 if seed is None else seed
-    mm_model = mm_model.to(device).eval()
-    test_batch = to_device(test_batch, device)
+    with span("eval.suite", seed=seed):
+        mm_model = mm_model.to(device).eval()
+        test_batch = to_device(test_batch, device)
 
-    def full_chunk(chunk, chunk_seed):
-        with torch.inference_mode():
-            recons = mm_model.reconstruct(chunk, K, predictive=predictive,
-                                          generator=device_generator(chunk_seed, device))
-            out = {"LC2LC": recons[0][0], "LC2spec": recons[0][1],
-                   "spec2LC": recons[1][0], "spec2spec": recons[1][1],
-                   "LCencode": mm_model.vaes[0].encode(chunk[0], mean=True),
-                   "specencode": mm_model.vaes[1].encode(chunk[1], mean=True)}
-            return {k: _host(v) for k, v in out.items()}
+        def full_chunk(chunk, chunk_seed):
+            with torch.inference_mode():
+                with span("eval.forward"):
+                    recons = mm_model.reconstruct(chunk, K, predictive=predictive,
+                                                  generator=device_generator(chunk_seed, device))
+                    out = {"LC2LC": recons[0][0], "LC2spec": recons[0][1],
+                           "spec2LC": recons[1][0], "spec2spec": recons[1][1],
+                           "LCencode": mm_model.vaes[0].encode(chunk[0], mean=True),
+                           "specencode": mm_model.vaes[1].encode(chunk[1], mean=True)}
+                return _on_host(out, device)
 
-    # recon cells are [K, chunk, ...]; posterior means are [chunk, ...]
-    axes = {"LC2LC": 1, "LC2spec": 1, "spec2LC": 1, "spec2spec": 1,
-            "LCencode": 0, "specencode": 0}
-    results = batched_apply(full_chunk, test_batch, chunk_size, out_axes=axes, mesh=mesh,
-                            seed=seed)
-    for name, model, m, offset in (("LConly", photo_only, 0, 1), ("speconly", spec_only, 1, 2)):
-        if model is not None:
-            results[name] = batched_apply(_unimodal(model, K, predictive, device),
-                                          test_batch[m], chunk_size, out_axes=1, mesh=mesh,
-                                          seed=fold_in(seed, offset))
+        # recon cells are [K, chunk, ...]; posterior means are [chunk, ...]
+        axes = {"LC2LC": 1, "LC2spec": 1, "spec2LC": 1, "spec2spec": 1,
+                "LCencode": 0, "specencode": 0}
+        results = batched_apply(full_chunk, test_batch, chunk_size, out_axes=axes, mesh=mesh,
+                                seed=seed)
+        for name, model, m, offset in (("LConly", photo_only, 0, 1), ("speconly", spec_only, 1, 2)):
+            if model is not None:
+                results[name] = batched_apply(_unimodal(model, K, predictive, device),
+                                              test_batch[m], chunk_size, out_axes=1, mesh=mesh,
+                                              seed=fold_in(seed, offset))
 
-    if norm:
-        # spectra-valued outputs → flux stats; LC-valued → photoflux stats;
-        # posterior means stay raw (spect_cond_LC.py:128-136)
-        for k in ("LC2spec", "spec2spec", "speconly"):
-            if k in results:
-                results[k] = results[k] * norm.get("flux_std", 1.0) + norm.get("flux_mean", 0.0)
-        for k in ("LC2LC", "spec2LC", "LConly"):
-            if k in results:
-                results[k] = (results[k] * norm.get("photoflux_std", 1.0)
-                              + norm.get("photoflux_mean", 0.0))
-    return results
+        if norm:
+            # spectra-valued outputs → flux stats; LC-valued → photoflux stats;
+            # posterior means stay raw (spect_cond_LC.py:128-136)
+            for k in ("LC2spec", "spec2spec", "speconly"):
+                if k in results:
+                    results[k] = results[k] * norm.get("flux_std", 1.0) + norm.get("flux_mean", 0.0)
+            for k in ("LC2LC", "spec2LC", "LConly"):
+                if k in results:
+                    results[k] = (results[k] * norm.get("photoflux_std", 1.0)
+                                  + norm.get("photoflux_mean", 0.0))
+        return results
 
 
 def evaluate_mmvae(
@@ -246,7 +269,8 @@ def evaluate_mmvae(
     if "speconly" in recs:
         sets["speconly"] = recs["speconly"]
         gts["speconly"] = gt_spectra
-    return aggregate_metrics(sets, gts, phase_physical)
+    with span("eval.metrics"):
+        return aggregate_metrics(sets, gts, phase_physical)
 
 
 def mask_light_curve(photo, missing: float, seed: int):
@@ -284,8 +308,10 @@ def masking_sweep(
 
     def recon(batch, chunk_seed):
         with torch.inference_mode():
-            return _host(mm_model.reconstruct(
-                batch, K, generator=device_generator(chunk_seed, device))[0][1])
+            with span("eval.forward"):
+                out = mm_model.reconstruct(batch, K,
+                                           generator=device_generator(chunk_seed, device))[0][1]
+            return _on_host(out, device)
 
     out = {}
     for i, missing in enumerate(missing_portions):

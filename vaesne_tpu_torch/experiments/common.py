@@ -52,6 +52,7 @@ from ..utils.checkpoint import (
 )
 from ..utils.config import asdict
 from ..utils.plotting import plot_loss_curve
+from ..utils.profiling import span
 from ..utils.rng import device_generator, fold_in
 from ..utils.weights import init_params
 
@@ -230,6 +231,9 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     turns the blocks' rematerialisation off (``TransformerStack``, read
     when the model is built) and ``VAESNE_DROPOUT_BITS`` sets the width of
     the kernels' dropout draws (``ops.attention.dropout_bits``).
+    While a profiler runs, the epoch's augmentation is the span
+    ``train.augment`` and a save, from the gather through the loss plot,
+    ``train.save`` (``utils.profiling.span``).
 
     ``train.mesh`` (``parallel.resolve_mesh``) spreads the run over ranks:
     "N" is data parallelism over N ranks, "DxM" adds Megatron tensor
@@ -329,7 +333,8 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
         aug_seed, shuffle_seed = _epoch_seeds(seed, epoch)
         epoch_data = train_data
         if augment_fn is not None:
-            epoch_data = augment_fn(device_generator(aug_seed, device), train_data)
+            with span("train.augment", epoch=epoch):
+                epoch_data = augment_fn(device_generator(aug_seed, device), train_data)
         state, mean_loss = epoch_fn(state, epoch_data,
                                     torch.Generator().manual_seed(shuffle_seed),
                                     train_cfg.batch_size)
@@ -341,26 +346,28 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
                   f"graph of the step holds a collective")
         if log:
             print(f"epoch {epoch + 1}/{train_cfg.epochs}: loss {losses[-1]:.6f}")
-        saving = (epoch + 1) % train_cfg.save_every == 0 or epoch + 1 == train_cfg.epochs
-        # every rank of a tensor-parallel group gathers; rank 0 writes
-        whole = gather_state_tp(state, mesh) if saving else None
-        if saving and lead:
-            save_checkpoint(ckpt_path, whole, cfg_dict)
-            np.save(os.path.join(ckpt_path, "losses.npy"), np.asarray(losses, np.float64))
-            # atomic: a kill mid-write must not leave truncated JSON
-            progress_tmp = os.path.join(ckpt_path, "progress.json.tmp")
-            with open(progress_tmp, "w") as f:
-                json.dump({"epochs_done": epoch + 1}, f)
-            os.replace(progress_tmp, os.path.join(ckpt_path, "progress.json"))
-            os.makedirs(train_cfg.log_dir, exist_ok=True)
-            try:
-                plot_loss_curve(losses, path=os.path.join(train_cfg.log_dir,
-                                                          f"{ckpt_name}_loss.png"))
-            except ImportError:
-                if not plot_warned:
-                    print("matplotlib is not installed: no loss-curve PNG is written "
-                          "(losses.npy holds every epoch's loss)")
-                    plot_warned = True
+        if (epoch + 1) % train_cfg.save_every == 0 or epoch + 1 == train_cfg.epochs:
+            with span("train.save", epoch=epoch):
+                # every rank of a tensor-parallel group gathers; rank 0 writes
+                whole = gather_state_tp(state, mesh)
+                if lead:
+                    save_checkpoint(ckpt_path, whole, cfg_dict)
+                    np.save(os.path.join(ckpt_path, "losses.npy"),
+                            np.asarray(losses, np.float64))
+                    # atomic: a kill mid-write must not leave truncated JSON
+                    progress_tmp = os.path.join(ckpt_path, "progress.json.tmp")
+                    with open(progress_tmp, "w") as f:
+                        json.dump({"epochs_done": epoch + 1}, f)
+                    os.replace(progress_tmp, os.path.join(ckpt_path, "progress.json"))
+                    os.makedirs(train_cfg.log_dir, exist_ok=True)
+                    try:
+                        plot_loss_curve(losses, path=os.path.join(train_cfg.log_dir,
+                                                                  f"{ckpt_name}_loss.png"))
+                    except ImportError:
+                        if not plot_warned:
+                            print("matplotlib is not installed: no loss-curve PNG is written "
+                                  "(losses.npy holds every epoch's loss)")
+                            plot_warned = True
         if callback is not None and lead:
             callback(epoch, state, losses[-1])
     return state, losses

@@ -37,11 +37,10 @@ from . import objectives
 from .nn.layers import (TransformerStack, autocast, cudnn_fp32_deterministic, no_autocast_cache,
                         resolve_precision)
 from .ops import counters, dropout_bits, partition
+from .utils.profiling import span
 from .utils.rng import SeedTape, StepSeed, draw_seed, fold_in, recording, word_value
 
 LossFn = Callable[[nn.Module, Any, int], torch.Tensor]
-
-captures = 0  # CUDA graphs of the step captured since import (make_scan_epoch)
 
 
 def safelog10(x: float) -> float:
@@ -690,6 +689,17 @@ class _GraphEpoch:
     count (``TrainState.version``) changes. A failed capture raises. On the
     CPU the same stages run eagerly at every step.
 
+    Spans (``utils.profiling.span``, recorded while a profiler runs): an
+    epoch is ``train.epoch`` (``epoch``: the state's step over the epoch's
+    steps), holding ``train.order`` (the permutation and its copy to the
+    device), a ``train.step`` a step (``kind``: ``warm_up``, ``capture``,
+    ``replay``, ``eager`` on the CPU, or ``loop`` under a mesh's step loop)
+    and ``train.loss_read`` (the epoch's one sync); a step holds
+    ``train.gather`` (the batch into the static buffers), and where graphs
+    replay ``train.reseed`` (the sites' seeds, the generators' re-seeds and
+    the seed words' fills), a ``train.replay`` per graph and a
+    ``train.collective`` per eager stage between them.
+
     Under a mesh ``start`` runs once, before the first step, and the first
     step counts the layers' collectives inside the captured stages
     (``partition.collectives_reached``; an eager stage's are the step's
@@ -718,9 +728,14 @@ class _GraphEpoch:
             raise ValueError("the state holds another model than this epoch function")
         data = to_device(data, self.device)
         leaves = _leaves(data)
-        order = _epoch_order(generator, leaves[0].shape[0], batch_size).to(self.device)
-        losses = [self._step(state, data, leaves, idx) for idx in order]
-        return state, float(torch.stack(losses).mean())
+        steps = max(leaves[0].shape[0] // batch_size, 1)  # _epoch_order raises at 0
+        with span("train.epoch", epoch=state.step // steps):
+            with span("train.order"):
+                order = _epoch_order(generator, leaves[0].shape[0], batch_size).to(self.device)
+            losses = [self._step(state, data, leaves, idx) for idx in order]
+            with span("train.loss_read"):
+                loss = float(torch.stack(losses).mean())
+        return state, loss
 
     def _key(self, state: TrainState, leaves, batch_size: int):
         remat = tuple(m.remat for m in self.model.modules() if isinstance(m, TransformerStack))
@@ -729,26 +744,32 @@ class _GraphEpoch:
 
     def _step(self, state: TrainState, data, leaves, idx: torch.Tensor) -> torch.Tensor:
         if self.step_loop_reason is not None:
-            state, loss = self.loop(state, _tree_map(lambda a: a[idx], data))
+            with span("train.step", kind="loop"):
+                state, loss = self.loop(state, _tree_map(lambda a: a[idx], data))
             return loss
-        seed = StepSeed(draw_seed(state.generator))
-        key = self._key(state, leaves, idx.numel())
-        if key != self.key:
-            self.key, self.warm, self.graph = key, None, None
-            self.buffers = [a.new_empty((idx.numel(), *a.shape[1:])) for a in leaves]
-        for a, buf in zip(leaves, self.buffers):
-            torch.index_select(a, 0, idx, out=buf)
-        if self.graph is None:
-            batch = _rebuild(data, iter(self.buffers))
-            if self.warm is None:
-                loss = self._warm_up(state, batch, seed)
-            elif self.device.type != "cuda":
-                loss = self._run(state, batch, seed)
-            else:
-                self._capture(state, batch, seed)
-        if self.graph is not None:
-            loss = self._replay(state, seed)
-        state.step += 1
+        with span("train.step") as step:
+            seed = StepSeed(draw_seed(state.generator))
+            key = self._key(state, leaves, idx.numel())
+            if key != self.key:
+                self.key, self.warm, self.graph = key, None, None
+                self.buffers = [a.new_empty((idx.numel(), *a.shape[1:])) for a in leaves]
+            step.set(kind="replay" if self.graph is not None
+                     else "warm_up" if self.warm is None
+                     else "eager" if self.device.type != "cuda" else "capture")
+            with span("train.gather"):
+                for a, buf in zip(leaves, self.buffers):
+                    torch.index_select(a, 0, idx, out=buf)
+            if self.graph is None:
+                batch = _rebuild(data, iter(self.buffers))
+                if self.warm is None:
+                    loss = self._warm_up(state, batch, seed)
+                elif self.device.type != "cuda":
+                    loss = self._run(state, batch, seed)
+                else:
+                    self._capture(state, batch, seed)
+            if self.graph is not None:
+                loss = self._replay(state, seed)
+            state.step += 1
         return loss
 
     def _run(self, state: TrainState, batch, seed: int) -> torch.Tensor:
@@ -831,21 +852,23 @@ class _GraphEpoch:
             raise RuntimeError("the captured step reached other draw sites than its warm-up step")
         self.graph = _Captured(graphs, tape, generators, words, loss,
                                {name: after[name] - before[name] for name in after})
-        global captures
-        captures += 1
+        counters.add_launch_counts({"captures": 1})  # after the restore; a replay adds 0
 
     def _replay(self, state: TrainState, seed: int) -> torch.Tensor:
         g = self.graph
-        generator_seeds, word_seeds = g.tape.values(seed)
-        for generator, s in zip(g.generators, generator_seeds):
-            generator.manual_seed(s)
-        for word, s in zip(g.words.unbind(), word_seeds):  # a fill each, in stream order
-            word.fill_(word_value(s))
+        with span("train.reseed"):
+            generator_seeds, word_seeds = g.tape.values(seed)
+            for generator, s in zip(g.generators, generator_seeds):
+                generator.manual_seed(s)
+            for word, s in zip(g.words.unbind(), word_seeds):  # a fill each, in stream order
+                word.fill_(word_value(s))
         for stage, graph in zip(self.stages, g.graphs):
             if graph is None:
-                stage.fn(state, None, seed)
+                with span("train.collective"):
+                    stage.fn(state, None, seed)
             else:
-                graph.replay()
+                with span("train.replay"):
+                    graph.replay()
         counters.add_launch_counts(g.launches)
         return g.loss.clone()
 
