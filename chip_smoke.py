@@ -21,7 +21,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
   4. the serving path at the flagship model's full width (random weights
      from --seed): embed, crossmodal, crossmodal_ci and reconstruct through
      InferenceServer, with K1's launch count checked against what the
-     dispatch rule predicts for every call;
+     dispatch rule predicts for every call, and LN's against three
+     LayerNorms a layer of every tower the call runs;
   5. the whole decode on the card (kernel) against the same module on the
      CPU (plain version);
   6. serving times: K1, its plain version and the library yardstick
@@ -164,6 +165,20 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      (c) samples/s a rank, rank 0's busy share and peak memory of graph
      and step loop for (a)'s fp32 run, and the time of each eager
      collective of a step.
+ 20. (run right after phase 3, before the other phases' profilers)
+     LayerNorm (ops/layer_norm.py, csrc/layer_norm.cu) over 32 features at
+     the flagship decoder's 62,848 rows, the ZTF decoder's 502,784 and the
+     evaluation's 12,569,600: the forward against F.layer_norm, dx, dgamma
+     and dbeta against torch's backward; each kernel's device time (the
+     backward's row pass and its gamma/beta stage apart) beside its HBM
+     byte bound and beside torch's kernels at the same shape; the module's
+     time a call against nn.LayerNorm's at [480, 32], where the host sets
+     the pace.
+
+Wherever a phase counts launches (COUNTERS: K1-K4, and the LayerNorm
+kernels' LN, LN bwd and LN plain, the CUDA LayerNorms that took
+F.layer_norm), LN plain must read 0: every LayerNorm of every path takes
+the kernels.
 
 Any failure raises and exits non-zero before the last line, which is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 1 at once.
@@ -190,6 +205,7 @@ import vaesne_tpu_torch.evaluation.harness as harness
 import vaesne_tpu_torch.nn.layers as layers
 import vaesne_tpu_torch.ops.attention as attention
 import vaesne_tpu_torch.ops.laplace as laplace
+import vaesne_tpu_torch.ops.layer_norm as layer_norm
 import vaesne_tpu_torch.parallel as parallel
 from vaesne_tpu_torch import (
     InferenceServer,
@@ -338,6 +354,14 @@ def stack_launches(rows, lq, lk_context):
     (lq x lq) and a cross-attention (lq x lk_context)."""
     return LAYERS * (int(routes_to_kernel(rows, HEADS, lq, lq))
                      + int(routes_to_kernel(rows, HEADS, lq, lk_context)))
+
+
+def ln_launches(stacks, selfattn=False):
+    """LayerNorm forwards of ``stacks`` TransformerStack calls: every block
+    normalises after each residual branch, three with a context (four with
+    the context's self-attention), at any row count (no dispatch rule:
+    the kernels take every [rows, 32] fp32 input)."""
+    return stacks * LAYERS * (3 + int(selfattn))
 
 
 def encoder_launches(m, rows):
@@ -745,21 +769,25 @@ def phase_serving(model, seed):
     def sub(batch, n):
         return tuple(a[:n] for a in batch)
 
-    def check(label, expected, fn):
-        before = attention.launches
+    def check(label, expected, fn, stacks=2):
+        """``fn``'s K1 launches against ``expected``, and its LN launches
+        against ``stacks`` tower calls (none on F.layer_norm)."""
+        before = attention.launches, layer_norm.launches, layer_norm.plain_calls
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        got = attention.launches - before
-        log(4, f"{label}: {dt * 1e3:.1f} ms, kernel launches {got} (predicted {expected})")
-        assert got == expected, (label, got, expected)
+        got = (attention.launches - before[0], layer_norm.launches - before[1],
+               layer_norm.plain_calls - before[2])
+        want = (expected, ln_launches(stacks), 0)
+        log(4, f"{label}: {dt * 1e3:.1f} ms, K1, LN, LN plain launches {got} (predicted {want})")
+        assert got == want, (label, got, want)
         return out
 
     attention.launches = 0
     for m, x in enumerate((photo, spec)):
         z = check(f"embed m={m} n=8", encoder_launches(m, 8),
-                  lambda x=x, m=m: server.embed(sub(x, 8), modality=m))
+                  lambda x=x, m=m: server.embed(sub(x, 8), modality=m), stacks=1)
         assert z.shape == (8, LATENT_LEN, LATENT_DIM) and torch.isfinite(z).all()
     # bucket 128 also routes the 982x5 cross-attention (R = 12,800 >= 3,417)
     for n, bucket in ((6, 8), (20, 32), (128, 128)):
@@ -782,7 +810,7 @@ def phase_serving(model, seed):
     rec = check("reconstruct K=2 n=8",
                 sum(encoder_launches(m, 8) for m in (0, 1))
                 + sum(decoder_launches(d, 2 * 2 * 8) for d in (0, 1)),
-                lambda: server.reconstruct((sub(photo, 8), sub(spec, 8)), K=2))
+                lambda: server.reconstruct((sub(photo, 8), sub(spec, 8)), K=2), stacks=4)
     for e in (0, 1):
         for d, grid in ((0, LP), (1, NS)):
             assert rec[e][d].shape == (2, 8, grid) and np.isfinite(rec[e][d]).all()
@@ -801,16 +829,17 @@ def phase_card_vs_cpu(model, cpu_model, seed):
     for d, x in ((1, spec), (0, photo)):
         xt = tuple(torch.from_numpy(a) for a in x)
         with torch.inference_mode():
-            before = attention.launches
+            before = attention.launches, layer_norm.launches, layer_norm.plain_calls
             card = model.vaes[d].decode(zs.cuda(), tuple(a.cuda() for a in xt)).mean
             torch.cuda.synchronize()
-            launched = attention.launches - before
+            launched = attention.launches - before[0]
+            ln = layer_norm.launches - before[1], layer_norm.plain_calls - before[2]
             cpu = cpu_model.vaes[d].decode(zs, xt).mean
         err = (card.cpu() - cpu).abs().max().item()
         rel = err / cpu.abs().max().item()
         log(5, f"decode modality {d}: card (kernel launches {launched}) vs CPU max-abs "
                f"{err:.3e}, relative {rel:.3e}")
-        assert launched == decoder_launches(d, 4)
+        assert launched == decoder_launches(d, 4) and ln == (ln_launches(1), 0), (launched, ln)
         assert np.isfinite(rel) and rel <= 1e-4, (d, rel)
 
 
@@ -863,7 +892,12 @@ def phase_times(model, seed, sm_clock_mhz):
 
 # -- training ------------------------------------------------------------------
 
-COUNTERS = ("K1 rate>0", "K1", "K2", "K3", "K4")
+COUNTERS = ("K1 rate>0", "K1", "K2", "K3", "K4", "LN", "LN bwd", "LN plain")
+# phase 14's rank rows (rank_step, _rank_table): the launches in COUNTERS
+# order, then these columns (ERR_COL: K1's forward, the gradients' max-abs
+# and the worst relative gradient, three columns)
+SEED_COL, ROWS_COL, HEADS_COL, KEEP_COL, SIGMA_COL, PEAK_COL, TIME_COL, ERR_COL = range(
+    len(COUNTERS), len(COUNTERS) + 8)
 
 
 def kernel_counts():
@@ -875,18 +909,31 @@ def reset_counts():
     counters.set_launch_counts(dict.fromkeys(COUNTERS, 0))
 
 
+def assert_ln_engaged(label, launches, backward=None):
+    """Every LayerNorm of a counted run (``launches``: COUNTERS to counts)
+    took the kernels: LN > 0 and LN plain 0, and, where ``backward`` says
+    whether the run trained, LN bwd > 0 or 0 to match."""
+    ok = launches["LN"] > 0 and launches["LN plain"] == 0
+    if backward is not None:
+        ok = ok and (launches["LN bwd"] > 0) == backward
+    assert ok, (label, launches)
+
+
 def train_step_prediction(batch_size, dropout, remat=True):
     """Launches per train step, from the dispatch rules: each routed grid
     launches K1 in the forward and, with ``remat`` (VAESNE_REMAT unset or
     not 0), again in remat's re-run, and K2 once in the backward; decoders
     run on M·K·B rows (in train mode: dropout), encoders on B rows (always
     deterministic); each of the M experts' likelihoods on a grid of 128
-    points or more launches K3 and K4 once."""
+    points or more launches K3 and K4 once; the four towers' LayerNorms
+    launch LN in the forward and in remat's re-run, and LN bwd once."""
     dec = sum(decoder_launches(d, M * K_TRAIN * batch_size) for d in (0, 1))
     enc = sum(encoder_launches(m, batch_size) for m in (0, 1))
     lik = M * sum(laplace_routes_to_kernel(n) for n in (LP, NS))
     runs = 2 if remat else 1
-    return (runs * dec if dropout > 0 else 0, runs * (dec + enc), dec + enc, lik, lik)
+    ln = ln_launches(2 * M)
+    return (runs * dec if dropout > 0 else 0, runs * (dec + enc), dec + enc, lik, lik,
+            runs * ln, ln, 0)
 
 
 def m_iwae_loss(model, batch, seed):
@@ -929,7 +976,8 @@ def phase_training(seed):
         res[precision] = (med, peak, state, step, batch)
     totals = dict(zip(COUNTERS, kernel_counts()))
     log(7, f"main path (training, {2 * TRAIN_STEPS} steps): launches {totals}")
-    assert all(v > 0 for v in totals.values())
+    assert all(v > 0 for k, v in totals.items() if k != "LN plain")
+    assert_ln_engaged("(7) training", totals, backward=True)
     return totals, res
 
 
@@ -1231,7 +1279,9 @@ def phase_drivers(seed):
     launches_a = dict(zip(COUNTERS, kernel_counts()))
     log(10, f"(a) main path (drivers): launches {launches_a}; CUDA graphs of the step "
             f"captured {counters.captures - captured} (train.scan_epoch=true)")
-    assert len(losses_a) == DRIVER_EPOCHS and all(v > 0 for v in launches_a.values())
+    assert len(losses_a) == DRIVER_EPOCHS
+    assert all(v > 0 for k, v in launches_a.items() if k != "LN plain")
+    assert_ln_engaged("(10a) train_photospectra", launches_a, backward=True)
     rates = [B_DRIVER * steps / t for t, steps in epochs]
     med_rate = statistics.median(rates[1:])
     log(10, f"(e) driver samples/s per epoch (host clock, the epoch ending in the loss's "
@@ -1258,7 +1308,8 @@ def phase_drivers(seed):
     idx = np.asarray(data["testing_idx"])[:N_HELD_OUT]
     photo, spec = (tuple(t.numpy() for t in m)
                    for m in multimodal_tuple(data, idx=idx, device="cpu"))
-    want = encoder_launches(0, N_HELD_OUT) + decoder_launches(1, K_SERVE * N_HELD_OUT)
+    want = (encoder_launches(0, N_HELD_OUT) + decoder_launches(1, K_SERVE * N_HELD_OUT),
+            ln_launches(2), 0)
     outs = []
     reset_counts()
     for label, make in (("from_checkpoint", lambda: InferenceServer.from_checkpoint(
@@ -1266,12 +1317,13 @@ def phase_drivers(seed):
                         ("in-memory model", lambda: InferenceServer(
                             state_a.model, buckets=BUCKETS, seed=seed))):
         server = make()
-        before = attention.launches
+        before = attention.launches, layer_norm.launches, layer_norm.plain_calls
         outs.append(server.crossmodal_ci(photo, spec, K=K_SERVE, alpha=0.1))
         torch.cuda.synchronize()
-        got = attention.launches - before
+        got = (attention.launches - before[0], layer_norm.launches - before[1],
+               layer_norm.plain_calls - before[2])
         log(10, f"(c) {label}: crossmodal_ci 0->1 K={K_SERVE} on {N_HELD_OUT} held-out events, "
-                f"K1 launches {got} (predicted {want})")
+                f"K1, LN, LN plain launches {got} (predicted {want})")
         assert got == want, (label, got, want)
     for t in outs[0]:
         assert t.shape == (N_HELD_OUT, NS) and torch.isfinite(t).all()
@@ -1288,12 +1340,14 @@ def phase_drivers(seed):
                                 ("train_ztf_photospect", train_ztf_photospect,
                                  ("repeat_factor=1",)),
                                 ("train_ztf_spectra", train_ztf_spectra, ("repeat_factor=1",))):
-        t0 = time.perf_counter()
+        t0, before = time.perf_counter(), kernel_counts()
         state, losses = driver.main(driver_args(seed, dir_d, "train.epochs=1", *extra))
         torch.cuda.synchronize()
+        got = dict(zip(COUNTERS, (b - a for a, b in zip(before, kernel_counts()))))
         log(10, f"(d) {name}: 1 epoch, {state.step} steps, loss {losses[0]:.6f}, "
-                f"{time.perf_counter() - t0:.2f} s with its set-up")
+                f"{time.perf_counter() - t0:.2f} s with its set-up; launches {got}")
         assert len(losses) == 1 and np.isfinite(losses).all(), (name, losses)
+        assert_ln_engaged(f"(10d) {name}", got, backward=True)
 
     # (e) the device's busy share of one epoch of the driver itself: a copy
     # of (a)'s checkpoint resumed for two more epochs, the profiler running
@@ -1327,31 +1381,34 @@ def phase_drivers(seed):
 # -- evaluation ------------------------------------------------------------------
 
 def suite_chunk_prediction(chunk):
-    """K1 launches of one reconstruction-suite chunk: MMVAE.reconstruct
-    encodes both modalities and runs each decoder on M·K·chunk rows, then
-    the posterior means encode both modalities again."""
+    """(K1, LN) launches of one reconstruction-suite chunk:
+    MMVAE.reconstruct encodes both modalities and runs each decoder on
+    M·K·chunk rows, then the posterior means encode both modalities
+    again."""
     return (2 * sum(encoder_launches(m, chunk) for m in (0, 1))
-            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)))
+            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)), ln_launches(6))
 
 
 def sweep_chunk_prediction(chunk):
-    """K1 launches of one masking-sweep chunk: one MMVAE.reconstruct."""
+    """(K1, LN) launches of one masking-sweep chunk: one MMVAE.reconstruct."""
     return (sum(encoder_launches(m, chunk) for m in (0, 1))
-            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)))
+            + sum(decoder_launches(d, M * K_EVAL * chunk) for d in (0, 1)), ln_launches(4))
 
 
 @contextlib.contextmanager
 def per_chunk_launches(record):
-    """Append (chunk size, K1 launches) for every chunk the harness runs:
-    batched_apply's chunk function wrapped to count around each call (the
-    chunk's outputs reach the host inside it, so its kernels have run)."""
+    """Append (chunk size, (K1, LN) launches) for every chunk the harness
+    runs: batched_apply's chunk function wrapped to count around each call
+    (the chunk's outputs reach the host inside it, so its kernels have
+    run)."""
     real = harness.batched_apply
 
     def counting(fn, data, chunk_size, *args, **kwargs):
         def counted(*a):
-            before = attention.launches
+            before = attention.launches, layer_norm.launches
             out = fn(*a)
-            record.append((chunk_size, attention.launches - before))
+            record.append((chunk_size, (attention.launches - before[0],
+                                        layer_norm.launches - before[1])))
             return out
         return real(counted, data, chunk_size, *args, **kwargs)
 
@@ -1422,7 +1479,8 @@ def phase_evaluation(seed):
     totals = dict(zip(COUNTERS, kernel_counts()))
     log(11, f"main path (evaluation: eval_goldstein twice, eval_masking): launches {totals}; "
             f"the first eval_goldstein call took {t_first:.2f} s")
-    assert totals["K1"] > 0 and all(v == 0 for k, v in totals.items() if k != "K1"), totals
+    assert totals["K1"] > 0 and all(v == 0 for k, v in totals.items() if k not in ("K1", "LN"))
+    assert_ln_engaged("(11) evaluation", totals, backward=False)
 
     # (a), (b), (c): against the JAX package's results for this checkpoint
     eval_gates("(a) eval_goldstein K=100", metrics, EVAL_REF["latent"], failures)
@@ -1442,15 +1500,16 @@ def phase_evaluation(seed):
     sweep = [n for size, n in record if size == SWEEP_CHUNK]
     want_suite = suite_chunk_prediction(SUITE_CHUNK)
     want_sweep = sweep_chunk_prediction(SWEEP_CHUNK)
-    log(11, f"(d) K1 launches per suite chunk (R = {rows}) {sorted(set(suite))} over {len(suite)} "
-            f"chunks (predicted {want_suite}); per sweep chunk (R = {M * K_EVAL * SWEEP_CHUNK}) "
-            f"{sorted(set(sweep))} over {len(sweep)} chunks (predicted {want_sweep})")
+    log(11, f"(d) (K1, LN) launches per suite chunk (R = {rows}) {sorted(set(suite))} over "
+            f"{len(suite)} chunks (predicted {want_suite}); per sweep chunk (R = "
+            f"{M * K_EVAL * SWEEP_CHUNK}) {sorted(set(sweep))} over {len(sweep)} chunks "
+            f"(predicted {want_sweep})")
     data = resolve_dataset(None)
     n_test = len(data["testing_idx"])
     assert len(suite) == 2 * -(-n_test // SUITE_CHUNK), len(suite)
     assert len(sweep) == 6 * -(-n_test // SWEEP_CHUNK), len(sweep)
     assert set(suite) == {want_suite} and set(sweep) == {want_sweep}, (suite, sweep)
-    assert totals["K1"] == sum(suite) + sum(sweep)
+    assert totals["K1"] == sum(k1 for k1, _ in suite + sweep)
 
     # (e) K1 on the captured R = 12,800 decoder input against its plain
     # version on its first and last rows (all rows' logits would be ~197 GB)
@@ -1575,9 +1634,10 @@ def image_step_prediction(cfg):
     """Launches per train_image step (COUNTERS order): the whole forward in
     train mode (dropout 0.1), so every routed grid launches K1 at rate 0.1
     in the forward and again in remat's re-run, and K2 once; a plain
-    Laplace likelihood, so no K3 or K4."""
-    n = image_forward_launches(cfg, cfg.train.batch_size, cfg.train.K)
-    return (2 * n, 2 * n, n, 0, 0)
+    Laplace likelihood, so no K3 or K4; the encoder's and the decoder's
+    LayerNorms LN twice and LN bwd once."""
+    n, ln = image_forward_launches(cfg, cfg.train.batch_size, cfg.train.K), ln_launches(2)
+    return (2 * n, 2 * n, n, 0, 0, 2 * ln, ln, 0)
 
 
 def phase_image_kernels():
@@ -1646,13 +1706,14 @@ def phase_image_checkpoint():
     for device in ("cpu", "cuda"):
         m = copy.deepcopy(model).to(device)
         x = image_batch(ref.shape[0], device=device)
-        before = attention.launches
+        before = attention.launches, layer_norm.launches, layer_norm.plain_calls
         with torch.inference_mode():
             locs[device] = m.decode(m.encode(x)[None], x).loc[0].cpu().numpy()
         if device == "cuda":
-            launched = attention.launches - before
+            launched = attention.launches - before[0]
+            ln = layer_norm.launches - before[1], layer_norm.plain_calls - before[2]
             want = image_forward_launches(cfg, ref.shape[0], 1)
-            assert launched == want, (launched, want)
+            assert launched == want and ln == (ln_launches(2), 0), (launched, want, ln)
     scale = np.abs(ref).max()
     rel_jax = np.abs(locs["cuda"] - ref).max() / scale
     rel_cpu = np.abs(locs["cuda"] - locs["cpu"]).max() / np.abs(locs["cpu"]).max()
@@ -1774,6 +1835,7 @@ def phase_try_image():
             f"launches {launches} (K1 predicted {want}), reconstructions {recon.shape} saved "
             f"as .npy, figure written: {drawn}")
     assert launches["K1"] == want and launches["K1 rate>0"] == 0, (launches, want)
+    assert_ln_engaged("(12d) try_models model=image", launches, backward=False)
     assert recon.shape == (K_TRY, N_TRY, 3, IMG, IMG) and np.isfinite(recon).all()
     assert np.array_equal(saved, recon)
 
@@ -1935,7 +1997,8 @@ def contrastive_step_prediction(cfg):
     sa, rows, q = cfg.model.selfattn, cfg.train.batch_size, cfg.model.latent_len
     n = encoder_launches_of(rows, q, LP, sa) + encoder_launches_of(rows, q, CONTEXT, sa)
     rate = 2 * n if cfg.model.dropout > 0 else 0
-    return (rate, 2 * n, n, 0, 0)
+    ln = ln_launches(2, sa)
+    return (rate, 2 * n, n, 0, 0, 2 * ln, ln, 0)
 
 
 def regression_step_prediction(modality, backbone):
@@ -1946,10 +2009,10 @@ def regression_step_prediction(modality, backbone):
     context = LP if modality == "photometry" else CONTEXT
     latent_len = ContrastiveConfig().model.latent_len
     queries = 2 * latent_len if backbone == "mmvae" else latent_len
-    n = encoder_launches_of(B_CONTRA, queries, context, False)
+    n, ln = encoder_launches_of(B_CONTRA, queries, context, False), ln_launches(1)
     if backbone == "end2end":
-        return (2 * n, 2 * n, n, 0, 0)
-    return (0, n, 0, 0, 0)
+        return (2 * n, 2 * n, n, 0, 0, 2 * ln, ln, 0)
+    return (0, n, 0, 0, 0, ln, 0, 0)
 
 
 def phase_contrastive_checkpoint():
@@ -1982,7 +2045,10 @@ def phase_contrastive_checkpoint():
             f"launches {launches}")
     assert z1.shape == ref["z1"].shape and all(r <= 1e-4 for r in rel), rel
     assert err <= 1e-4, err
-    assert all(v == 0 for v in launches.values()), launches
+    # both towers over the test events, then over each InfoNCE batch
+    want_ln = ln_launches(2, cfg.model.selfattn) * (1 + len(ce))
+    assert all(launches[k] == 0 for k in COUNTERS if k != "LN"), launches
+    assert launches["LN"] == want_ln, (launches, want_ln)
 
 
 def epoch_timer(phase, label, per_step, timer):
@@ -2267,7 +2333,8 @@ def phase_regression_eval():
             f"({n / wall:.1f} events/s, set-up included), the head's forward on all {n} "
             f"{forward * 1e3:.3f} ms ({n / forward:.0f} events/s); launches {launches}")
     assert absdiff.shape == ref.shape and err <= 1e-4, err
-    assert all(v == 0 for v in launches.values()), launches
+    assert all(launches[k] == 0 for k in COUNTERS if k != "LN"), launches
+    assert_ln_engaged("(13e) eval_regression", launches, backward=False)
     return dict(events_s=n / wall, forward_events_s=n / forward, wall=wall)
 
 
@@ -2480,7 +2547,9 @@ def dp_ranks_program(seed, batch, photo, spec):
                                    K=K_SERVE, generator=g)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        served[bucket] = ([t.cpu() for t in out], all_ranks([attention.launches, dt]))
+        served[bucket] = ([t.cpu() for t in out], all_ranks([attention.launches, dt,
+                                                             layer_norm.launches,
+                                                             layer_norm.plain_calls]))
     return b0, b1, served
 
 
@@ -2503,11 +2572,11 @@ def _check_step(label, loss, params, want_loss, want_params, rtol, ptol):
 
 def _check_launches(label, table, want, phase=14):
     for r, row in enumerate(table):
-        got = tuple(int(x) for x in row[:5])
+        got = tuple(int(x) for x in row[:SEED_COL])
         log(phase, f"{label} rank {r}: launches {dict(zip(COUNTERS, got))} (predicted "
                 f"{dict(zip(COUNTERS, want))})")
         assert got == want, (label, r, got, want)
-    return [tuple(int(x) for x in row[:5]) for row in table]
+    return [tuple(int(x) for x in row[:SEED_COL]) for row in table]
 
 
 def _check_masks(label, table, phase=14, length=NS):
@@ -2517,7 +2586,8 @@ def _check_masks(label, table, phase=14, length=NS):
     Returns the worst forward and gradient max-abs errors over the ranks."""
     spans = []
     for r, row in enumerate(table):
-        seed, rows, heads, keep, sigmas = int(row[5]), int(row[6]), int(row[7]), row[8], row[9]
+        seed, rows, heads = int(row[SEED_COL]), int(row[ROWS_COL]), int(row[HEADS_COL])
+        keep, sigmas = row[KEEP_COL], row[SIGMA_COL]
         log(phase, f"{label} rank {r}: K1 seed {seed} over [{rows}, {length}, {length}] x "
                 f"{heads} heads, keep rate {keep:.6f} ({sigmas:.2f} sigma)")
         assert sigmas <= 4, (label, r, keep)
@@ -2525,13 +2595,13 @@ def _check_masks(label, table, phase=14, length=NS):
     for (a0, a1), (b0, b1) in zip(spans, spans[1:]):
         assert a1 <= b0 or b1 <= a0, (label, spans)
     for r, row in enumerate(table):
-        err_f, err_b, rel_b = row[12:15]
+        err_f, err_b, rel_b = row[ERR_COL:ERR_COL + 3]
         assert err_f >= 0, (label, r, "no K1/K2 input captured")
-        held = min(HELD_ROWS, int(row[6]))
+        held = min(HELD_ROWS, int(row[ROWS_COL]))
         log(phase, f"{label} rank {r}: K1/K2 on its captured input ({held} rows, seed "
-                f"{int(row[5])}) against the plain versions: forward max-abs {err_f:.3e}, "
+                f"{int(row[SEED_COL])}) against the plain versions: forward max-abs {err_f:.3e}, "
                 f"gradients max-abs {err_b:.3e} (worst of dq, dk, dv relative {rel_b:.2e})")
-    return max(row[12] for row in table), max(row[13] for row in table)
+    return max(row[ERR_COL] for row in table), max(row[ERR_COL + 1] for row in table)
 
 
 def phase_multigpu(seed):
@@ -2581,7 +2651,7 @@ def phase_multigpu(seed):
     c0, c1 = parallel.launch(tp_ranks_program, tp, seed, batch)
     _check_step("(c) 1x2 tensor parallel, dropout 0", c0[0], c0[1], loss0, params0, 1e-4, 1e-3)
     res["tp"] = _check_launches("(c) dropout 0.1", c1[2], pred1)
-    assert all(int(row[7]) == HEADS // 2 for row in c1[2])  # 2 heads of width 16 a rank
+    assert all(int(row[HEADS_COL]) == HEADS // 2 for row in c1[2])  # 2 heads of width 16 a rank
     assert np.isfinite(c1[0]), c1[0]  # TP head shards draw other (equally valid) masks
     tp_worst = _check_masks("(c)", c1[2])
     worst = tuple(max(a, b) for a, b in zip(worst, tp_worst))
@@ -2604,14 +2674,17 @@ def phase_multigpu(seed):
                             for r, row in enumerate(table)))
         assert rel <= 1e-5, (bucket, rel)
         assert launches == [predicted] * 2, (bucket, launches, predicted)
+        ln = [(int(row[2]), int(row[3])) for row in table]  # each rank's LN, LN plain
+        assert ln == [(ln_launches(2), 0)] * 2, (bucket, ln)
         res["serving"].append(launches)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     for label, table, events in (("(b) DP 2x1", b1[2], B_TRAIN // 2),
                                  ("(c) TP 1x2", c1[2], B_TRAIN)):
         log(14, f"{label}, two ranks on one card, B = {B_TRAIN}, dropout {DROPOUT}, fp32: "
-                + "; ".join(f"rank {r}: {events} events a step, {row[11] * 1e3:.1f} ms = "
-                            f"{events / row[11]:.1f} samples/s, peak memory {row[10]:.0f} MiB"
+                + "; ".join(f"rank {r}: {events} events a step, {row[TIME_COL] * 1e3:.1f} ms "
+                            f"= {events / row[TIME_COL]:.1f} samples/s, peak memory "
+                            f"{row[PEAK_COL]:.0f} MiB"
                             for r, row in enumerate(table))
                 + f" (not a scaling number); on {smi}")
     log(14, f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
@@ -2652,14 +2725,17 @@ def extras_rows():
 
 
 def extras_prediction(rows, rate, backward):
-    """K1/K2 launches of one TransformerModel call: each routed grid of a
-    layer (self-attention 982x982, cross-attention 982x5, context
-    self-attention 5x5) launches K1 once; with a backward, remat re-runs
-    the block's forward (K1 again) and K2 runs once."""
+    """Launches of one TransformerModel call (COUNTERS order): each routed
+    grid of a layer (self-attention 982x982, cross-attention 982x5,
+    context self-attention 5x5) launches K1 once, and each of the layer's
+    four LayerNorms LN once; with a backward, remat re-runs the block's
+    forward (K1 and LN again) and K2 and LN bwd run once."""
     grids = LAYERS * sum(routes_to_kernel(rows, HEADS, lq, lk) for lq, lk in (
         (NS, NS), (NS, EXTRAS_CONTEXT), (EXTRAS_CONTEXT, EXTRAS_CONTEXT)))
-    k1 = 2 * grids if backward else grids
-    return (k1 if rate > 0 else 0, k1, grids if backward else 0, 0, 0)
+    ln = ln_launches(1, selfattn=True)
+    k1, ln_fwd = (2 * grids, 2 * ln) if backward else (grids, ln)
+    return (k1 if rate > 0 else 0, k1, grids if backward else 0, 0, 0,
+            ln_fwd, ln if backward else 0, 0)
 
 
 @contextlib.contextmanager
@@ -2899,6 +2975,8 @@ def phase_reference_pickle(seed):
             f"the card (weights bitwise); crossmodal_ci K={K_EXTRAS} n={n}: K1 launches "
             f"{launches['K1']} (predicted {want}), card against CPU relative {rel:.3e}")
     assert launches["K1"] == want and launches["K2"] == 0, (launches, want)
+    assert (launches["LN"], launches["LN bwd"], launches["LN plain"]) == (ln_launches(2), 0, 0), (
+        launches)
     assert all(t.shape == (n, NS) and bool(torch.isfinite(t).all()) for t in got)
     assert np.isfinite(rel) and rel <= 1e-4, rel
     shutil.rmtree(root, ignore_errors=True)
@@ -3136,11 +3214,12 @@ def phase_bf16_eval(fp32_events_s):
         metrics = eval_goldstein.main([f"mm_ckpt={EVAL_CKPT}", f"K={K_EVAL}",
                                        f"out={os.path.join(out, 'timed')}"])
         wall = time.perf_counter() - t0
-    want = 2 * -(-n_test // SUITE_CHUNK) * suite_chunk_prediction(SUITE_CHUNK)
+    want = 2 * -(-n_test // SUITE_CHUNK) * suite_chunk_prediction(SUITE_CHUNK)[0]
     launches = dict(zip(COUNTERS, kernel_counts()))
     log(16, f"(c) main path (VAESNE_BF16=1 eval_goldstein twice): launches {launches} "
             f"(K1 predicted {want}); K1 q {record.get('K1')}")
     assert launches["K1"] == want and record.get("K1") == {torch.bfloat16}, (launches, record)
+    assert_ln_engaged("(16c) VAESNE_BF16=1 eval_goldstein", launches, backward=False)
     assert all(np.isfinite(metrics[k]).any() for k in ("mm_mse", "mm_coverage_mean"))
     eval_gates("(c) VAESNE_BF16=1 eval_goldstein K=100", metrics, EVAL_REF["latent"], failures,
                phase=16)
@@ -3303,12 +3382,18 @@ def phase_bridged_checkpoints():
             want = sum(vae_part_launches(vae, n, n_events, part) for part in ("encode", "decode"))
             assert not isinstance(vae, SpectraVAE) or vae_part_launches(
                 vae, n, 1, "decode") == vae.dec.blocks.num_layers, name
-            before = attention.launches
+            # three LayerNorms a layer of the encoder's and the decoder's stacks
+            want_ln = sum(3 * next(s for s in tower.modules()
+                                   if isinstance(s, layers.TransformerStack)).num_layers
+                          for tower in (vae.enc, vae.dec))
+            before = attention.launches, layer_norm.launches, layer_norm.plain_calls
             z = server.embed(tuple(a.numpy() for a in xm), modality=m)
             with torch.inference_mode():
                 loc = vae.decode(z[None], to_device(xm, torch.device("cuda"))).loc[0]
             torch.cuda.synchronize()
-            got = attention.launches - before
+            got = attention.launches - before[0]
+            ln = layer_norm.launches - before[1], layer_norm.plain_calls - before[2]
+            assert ln == (want_ln, 0), (name, m, ln, want_ln)
             errs = [np.abs(t.cpu().numpy() - ref[f"{key}_{m}"]).max()
                     / np.abs(ref[f"{key}_{m}"]).max() for key, t in (("embed", z), ("decode", loc))]
             log(16, f"(f) {name} modality {m} ({vae.modality_name}, {n} points): embed and "
@@ -3812,8 +3897,8 @@ def phase_dp_graph(seed):
         launches[key] = _check_launches(f"(b) 2 ranks {key} graph run", table,
                                         tuple(graph["steps"] * w for w in per_step), phase=18)
         worst[key] = _check_masks(f"(b) {key}, the last replayed step", table, phase=18)
-        rows, heads = int(table[0][6]), int(table[0][7])
-        offset = (int(table[1][5]) - int(table[0][5])) % 2**32
+        rows, heads = int(table[0][ROWS_COL]), int(table[0][HEADS_COL])
+        offset = (int(table[1][SEED_COL]) - int(table[0][SEED_COL])) % 2**32
         log(18, f"(b) {key}: rank 1's K1 seed minus rank 0's = {offset} = rows {rows} x heads "
                 f"{heads} x 1024: {offset == rows * heads * 1024}")
         assert offset == rows * heads * 1024, (key, offset, rows, heads)
@@ -3955,6 +4040,125 @@ def epoch_profiler():
     return profile(activities=[ProfilerActivity.CUDA], acc_events=True)
 
 
+# phase 20: LayerNorm's rows at the paths' shapes (model_dim 32): the
+# flagship decoder's 2·K·B·982 = 62,848 (K = 2, B = 16), the ZTF decoder's
+# 2·8·32·982 = 502,784 and the evaluation suite's 2·100·64·982 = 12,569,600
+LN_SHAPES = ((62_848, "flagship decoder"), (502_784, "ZTF decoder"),
+             (12_569_600, "evaluation"))
+
+
+def layer_norm_bytes(rows, n, backward):
+    """LayerNorm's HBM bytes: x read and y written (forward), x and dy read
+    and dx written (backward), in fp32, and the fp32 mean and rstd of each
+    row written or read; γ, β and the partials left out."""
+    return (3 if backward else 2) * rows * n * 4 + 8 * rows
+
+
+def kernel_ms(call, n=10):
+    """{kernel: device ms per call} of ``call`` under torch.profiler over
+    ``n`` calls, names as ``kernel_name`` gives them; {} where three
+    profiles in a row record no kernel time (the events' times then
+    stand alone)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile now and then records no kernel time at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if _is_kernel(e) and _device_us(e) > 0]
+        if events:
+            break
+    else:
+        log(20, "the profiler recorded no kernel time in three profiles")
+    return {kernel_name(e.key): _device_us(e) / n / 1e3 for e in events}
+
+
+def phase_layer_norm(seed):
+    """Phase 20: the LayerNorm kernels against torch's at the paths' shapes,
+    and the module's cost a call where the host sets the pace. Returns
+    ({rows: {"fwd": ms, "bwd": ms, "fwd_bound": ms, "bwd_bound": ms,
+    "torch_fwd": ms, "torch_bwd": ms, "err_y": max-abs, "err_grad": worst
+    relative, "device": {kernel: ms}}}, {"fwd", "torch_fwd", "fwd_bwd",
+    "torch_fwd_bwd": ms a call}): a call's time by CUDA events over
+    back-to-back calls (the wrapper's host time shows where it exceeds the
+    kernels'), each kernel's device time by the profiler."""
+    t_phase = time.perf_counter()
+    n, eps = MODEL_DIM, layers.LN_EPS
+    g = torch.Generator("cuda").manual_seed(seed)
+    w = 1.0 + 0.1 * torch.randn(n, device="cuda", generator=g)
+    b = 0.1 * torch.randn(n, device="cuda", generator=g)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    out = {}
+    for rows, label in LN_SHAPES:
+        torch.cuda.empty_cache()
+        x = torch.randn(rows, n, device="cuda", generator=g) * 2.0 + 0.5
+        dy = torch.randn(rows, n, device="cuda", generator=g)
+        y, mean, rstd = layer_norm.layer_norm_fwd(x, w, b, eps)
+        dx, dw, db = layer_norm.layer_norm_bwd(dy, x, w, mean, rstd)
+        y_t, mean_t, rstd_t = torch.ops.aten.native_layer_norm(x, [n], w, b, eps)
+
+        def torch_bwd():
+            return torch.ops.aten.native_layer_norm_backward(dy, x, [n], mean_t, rstd_t, w, b,
+                                                             [True, True, True])
+
+        dx_t, dw_t, db_t = torch_bwd()
+        torch.cuda.synchronize()
+        err_y = (y - y_t).abs().max().item()
+        errs = {name: _rel(mine, theirs) for name, mine, theirs in
+                (("dx", dx, dx_t), ("dgamma", dw, dw_t), ("dbeta", db, db_t))}
+        assert err_y <= 1e-5 and max(errs.values()) <= 1e-4, (label, err_y, errs)
+        inner = max(1, 2_000_000 // rows)  # back-to-back calls: ~2 M rows a timing
+        r = {"fwd": time_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, eps), inner=inner),
+             "bwd": time_ms(lambda: layer_norm.layer_norm_bwd(dy, x, w, mean, rstd), inner=inner),
+             "torch_fwd": time_ms(lambda: torch.ops.aten.native_layer_norm(x, [n], w, b, eps),
+                                  inner=inner),
+             "torch_bwd": time_ms(torch_bwd, inner=inner),
+             "fwd_bound": layer_norm_bytes(rows, n, False) / HBM_BYTES_S * 1e3,
+             "bwd_bound": layer_norm_bytes(rows, n, True) / HBM_BYTES_S * 1e3}
+        split = {**kernel_ms(lambda: layer_norm.layer_norm_fwd(x, w, b, eps)),
+                 **kernel_ms(lambda: torch.ops.aten.native_layer_norm(x, [n], w, b, eps)),
+                 **kernel_ms(lambda: layer_norm.layer_norm_bwd(dy, x, w, mean, rstd)),
+                 **kernel_ms(torch_bwd)}
+        r.update(device=split, err_y=err_y, err_grad=max(errs.values()))
+        log(20, f"[{rows:,}, {n}] ({label}): forward {r['fwd']:.4f} ms against a {r['fwd_bound']:.4f}"
+                f" ms bound ({r['fwd_bound'] / r['fwd']:.1%}), torch's {r['torch_fwd']:.4f} ms "
+                f"({r['fwd_bound'] / r['torch_fwd']:.1%}); backward {r['bwd']:.4f} ms against "
+                f"{r['bwd_bound']:.4f} ({r['bwd_bound'] / r['bwd']:.1%}), torch's "
+                f"{r['torch_bwd']:.4f} ({r['bwd_bound'] / r['torch_bwd']:.1%}); max-abs y "
+                f"{err_y:.3e}, relative {', '.join(f'{k} {v:.3e}' for k, v in errs.items())}")
+        for name, ms in sorted(split.items(), key=lambda kv: -kv[1]):  # device time, profiled
+            log(20, f"  {ms:.4f} ms device {name}")
+        out[rows] = r
+        del x, dy, y, mean, rstd, dx, y_t, mean_t, rstd_t, dx_t
+    # the host's share: the port's module (the autograd Function, the
+    # checks, the ctypes launch) against nn.LayerNorm on the serving
+    # encoder's [8 x 60, 32], where every call is host-bound; forward alone
+    # (no grad) and forward with backward
+    mine = layers.LayerNorm(n, eps=eps).cuda()
+    theirs = torch.nn.LayerNorm(n, eps=eps).cuda()
+    x = torch.randn(8 * LP, n, device="cuda", generator=g)
+    dy = torch.randn(8 * LP, n, device="cuda", generator=g)
+    xg = x.clone().requires_grad_()
+    before = layer_norm.launches, layer_norm.plain_calls
+    host = {}
+    with torch.no_grad():
+        host["fwd"] = time_ms(lambda: mine(x), inner=200)
+        host["torch_fwd"] = time_ms(lambda: theirs(x), inner=200)
+    host["fwd_bwd"] = time_ms(lambda: mine(xg).backward(dy), inner=100)
+    host["torch_fwd_bwd"] = time_ms(lambda: theirs(xg).backward(dy), inner=100)
+    assert layer_norm.launches > before[0] and layer_norm.plain_calls == before[1]
+    log(20, f"[{8 * LP}, {n}] a call, host-bound: the port's LayerNorm forward "
+            f"{host['fwd'] * 1e3:.1f} us against nn.LayerNorm's {host['torch_fwd'] * 1e3:.1f} us; "
+            f"forward and backward {host['fwd_bwd'] * 1e3:.1f} us against "
+            f"{host['torch_fwd_bwd'] * 1e3:.1f} us")
+    log(20, f"on {smi}; {time.perf_counter() - t_phase:.1f} s")
+    return out, host
+
+
 def _device_us(event):
     return getattr(event, "self_device_time_total", None) or getattr(
         event, "self_cuda_time_total", 0)
@@ -4047,6 +4251,8 @@ def main(argv=None):
     sm_clock = phase_environment()
     phase_build()
     errs = phase_kernel_vs_plain()
+    ln, ln_host = phase_layer_norm(args.seed)  # before the later phases' profilers
+    torch.cuda.empty_cache()
     model = flagship(args.seed)
     cpu_model = copy.deepcopy(model).eval()
     serving_launches = phase_serving(model, args.seed)
@@ -4095,6 +4301,7 @@ def main(argv=None):
     dp_contrastive_extra, (err_f, err_b) = phase_dp_contrastive(args.seed)
     errs["attention_fwd_dropout"] = max(errs["attention_fwd_dropout"], err_f)
     errs["attention_bwd"] = max(errs["attention_bwd"], err_b)
+    torch.cuda.empty_cache()
     ms, bound_ms, by, lib = res[(800, torch.float32)]
     ms16, bound16, _, lib16 = res[(800, torch.bfloat16)]
     f32, b16 = t[torch.float32], t[torch.bfloat16]
@@ -4124,6 +4331,17 @@ def main(argv=None):
          train_launches["K4"], errs["laplace_bwd"], lap32["k4"], lap32["p4"], lap32["b4"], None,
          lap16["k4"], None, drivers["K4"]),
     ]
+    ln_src, ztf = "vaesne_tpu_torch/csrc/layer_norm.cu", ln[LN_SHAPES[1][0]]
+    for kind, err, counter in (("fwd", ztf["err_y"], "LN"), ("bwd", ztf["err_grad"], "LN bwd")):
+        rows.append((f"layer_norm_{kind}", "cuda", ln_src, None, train_launches[counter], err,
+                     ztf[kind], None, (ztf[f"{kind}_bound"], "hbm"), ztf[f"torch_{kind}"], None,
+                     None, drivers[counter],
+                     {**{f"{key}_{r}": v[src] for r, v in ln.items()
+                         for key, src in (("ms", kind), ("bound_ms", f"{kind}_bound"),
+                                          ("library_ms", f"torch_{kind}"))},
+                      "host_ms": ln_host["fwd" if kind == "fwd" else "fwd_bwd"],
+                      "library_host_ms": ln_host[f"torch_{'fwd' if kind == 'fwd' else 'fwd_bwd'}"],
+                      "launches_plain": train_launches["LN plain"] + drivers["LN plain"]}))
     # ms/library_ms are fp32; ms_bf16/library_ms_bf16 the same calls on bf16
     # inputs; launches_drivers counts phase 10's path (K1 at rate 0: the
     # from_checkpoint serving), launches_eval phase 11's, with K1's fp32 time
@@ -4162,7 +4380,13 @@ def main(argv=None):
     # (launches_graph_dp; each rank's checked equal), and phase 19's: each
     # rank's launches of train_contrastive model.selfattn=true's 3 fp32
     # epochs under its data-parallel graph (launches_graph_dp_contrastive_
-    # rank{0,1}). The Laplace
+    # rank{0,1}). The LayerNorm rows (phase 20; no TPU kernel: the JAX
+    # package's flax nn.LayerNorm, which XLA fuses) are at the ZTF decoder's
+    # [502,784, 32] beside torch's kernels (library_ms), with ms_, bound_ms_
+    # and library_ms_ at each of LN_SHAPES' row counts, the module's time a
+    # host-bound call at [480, 32] (host_ms: forward, or forward and
+    # backward; library_host_ms: nn.LayerNorm's), and LN plain over phases 7
+    # and 10 (launches_plain, 0). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
     # host time per call; no single library call computes K3 or K4

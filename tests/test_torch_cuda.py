@@ -17,8 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 import vaesne_tpu_torch.ops.attention as attention
 import vaesne_tpu_torch.ops.laplace as laplace
+import vaesne_tpu_torch.ops.layer_norm as layer_norm
 from vaesne_tpu_torch import (
     InferenceServer,
     PhotometricVAE,
@@ -30,7 +33,7 @@ from vaesne_tpu_torch import (
     make_train_step,
     objectives,
 )
-from vaesne_tpu_torch.nn import MultiHeadAttention
+from vaesne_tpu_torch.nn import MultiHeadAttention, TransformerStack
 
 pytestmark = pytest.mark.cuda
 
@@ -457,15 +460,17 @@ def test_train_step_gradients_repeat_bitwise(cuda):
     assert not differ, differ
 
 
-def _graph_model():
-    kw = dict(latent_len=2, latent_dim=2, model_dim=16, ff_dim=16, num_layers=1, num_heads=2)
+def _graph_model(model_dim=16, num_heads=2):
+    kw = dict(latent_len=2, latent_dim=2, model_dim=model_dim, ff_dim=model_dim, num_layers=1,
+              num_heads=num_heads)
     return init_params(PhotoSpecMMVAE([PhotometricVAE(num_bands=6, **kw), SpectraVAE(**kw)]),
                        torch.Generator().manual_seed(0))
 
 
 def _counts():
     return (attention.launches, attention.dropout_launches, attention.bwd_launches,
-            laplace.launches, laplace.bwd_launches)
+            laplace.launches, laplace.bwd_launches, layer_norm.launches,
+            layer_norm.bwd_launches, layer_norm.plain_calls)
 
 
 def test_graph_replays_are_the_eager_steps(cuda):
@@ -474,7 +479,9 @@ def test_graph_replays_are_the_eager_steps(cuda):
     on K3/K4), over five one-step epochs: a warm-up step, the capture and
     its replay, then three more replays. Parameters and losses are bitwise
     those of five eager steps of the step loop, and the launch counters
-    rise by the eager step's launches at every replay."""
+    rise by the eager step's launches at every replay, the LayerNorm
+    kernels' among them (none computed by F.layer_norm: the towers' width
+    32, at 4 heads the flagship's head size 8)."""
     from vaesne_tpu_torch.training import make_scan_epoch, train_epoch
 
     batch = tuple(tuple(torch.from_numpy(a).to(cuda) for a in m) for m in _batch(4, 60, 300))
@@ -484,7 +491,7 @@ def test_graph_replays_are_the_eager_steps(cuda):
 
     runs = []
     for graph in (True, False):
-        model = _graph_model()
+        model = _graph_model(32, 4)
         opt = adamw(1e-3)
         state = TrainState.create(model, opt, seed=0)
         if graph:
@@ -503,6 +510,7 @@ def test_graph_replays_are_the_eager_steps(cuda):
     assert g_losses == e_losses and len(set(e_losses)) == 5
     assert all(torch.equal(a, b) for a, b in zip(g_params, e_params))
     assert e_launches[0][1] > 0 and e_launches[0][2] > 0 and e_launches[0][3] > 0
+    assert e_launches[0][5] > 0 and e_launches[0][6] > 0 and e_launches[0][7] == 0
     assert g_launches == e_launches and len(set(e_launches)) == 1
 
 
@@ -606,3 +614,179 @@ def test_a_cpu_checkpoint_resumes_on_the_card(cuda):
     assert all(s["step"].is_cuda for s in card.optimizer.state.values())
     card, loss = make_train_step(card_model, opt, loss_fn)(card, batch)
     assert torch.isfinite(loss) and card.step == 2
+
+
+# LayerNorm (ops/layer_norm.py, csrc/layer_norm.cu): the kernels against
+# F.layer_norm and against the plain formula (benchmark/reference's
+# layer_norm) in fp32, forward max-abs 1e-5; gradients against autograd of
+# the formula in fp64, 1e-4 of max |fp64| (dγ and dβ are sums over every
+# row)
+
+LN_ROWS = [1, 1000, 1001, 502_784]  # one row; a last tile part filled; the ZTF decoder's
+
+
+def _ln_inputs(device, rows, n, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn(rows, n, device=device, generator=g) * 2.0 + 0.5
+    w = 1.0 + 0.1 * torch.randn(n, device=device, generator=g)
+    b = 0.1 * torch.randn(n, device=device, generator=g)
+    dy = torch.randn(rows, n, device=device, generator=g)
+    return x, w, b, dy
+
+
+def _ln_formula(x, w, b, eps=1e-5):
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * w + b
+
+
+def _ln_run(fn, x, w, b, dy):
+    """(y, dx, dγ, dβ) of ``fn(x, w, b)`` with output gradient dy."""
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w, b)]
+    y = fn(*leaves)
+    y.backward(dy)
+    return (y.detach(), *(t.grad for t in leaves))
+
+
+def _ln_kernel(x, w, b):
+    return layer_norm.layer_norm(x, (x.shape[-1],), w, b, 1e-5)
+
+
+@pytest.mark.parametrize("n", [32, 64])
+@pytest.mark.parametrize("rows", LN_ROWS)
+def test_layer_norm_kernels_match_torch_and_the_formula(cuda, rows, n):
+    x, w, b, dy = _ln_inputs(cuda, rows, n, rows + n)
+    before = (layer_norm.launches, layer_norm.bwd_launches, layer_norm.plain_calls)
+    got = _ln_run(_ln_kernel, x, w, b, dy)
+    torch.cuda.synchronize()
+    assert (layer_norm.launches, layer_norm.bwd_launches, layer_norm.plain_calls) == (
+        before[0] + 1, before[1] + 1, before[2])
+    with torch.inference_mode():  # no graph to record: the forward kernel alone
+        assert torch.equal(_ln_kernel(x, w, b), got[0])
+    assert layer_norm.launches == before[0] + 2
+    torch_ = _ln_run(lambda x, w, b: F.layer_norm(x, (n,), w, b, 1e-5), x, w, b, dy)
+    assert (got[0] - torch_[0]).abs().max().item() <= 1e-5
+    assert (got[0] - _ln_formula(x, w, b)).abs().max().item() <= 1e-5
+    exact = _ln_run(_ln_formula, x.double(), w.double(), b.double(), dy.double())
+    for name, mine, want in zip(("dx", "dgamma", "dbeta"), got[1:], exact[1:]):
+        assert _rel(mine, want) <= 1e-4, name
+
+
+@pytest.mark.parametrize("n", [16, 128])
+def test_layer_norm_other_widths_take_f_layer_norm(cuda, n):
+    """A width with no instantiation (no tower runs at 16 or 128) is
+    F.layer_norm itself, forward and gradients, and counts as plain."""
+    x, w, b, dy = _ln_inputs(cuda, 3001, n, n)
+    before = _counts()
+    got = _ln_run(_ln_kernel, x, w, b, dy)
+    assert tuple(c - a for a, c in zip(before, _counts()))[5:] == (0, 0, 1)
+    want = _ln_run(lambda x, w, b: F.layer_norm(x, (n,), w, b, 1e-5), x, w, b, dy)
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_layer_norm_copies_strided_and_misaligned_inputs(cuda):
+    """A non-contiguous input, one 4 bytes off a 16-byte boundary and a
+    transposed output gradient are copied first: the same bits as the
+    contiguous call."""
+    x, w, b, dy = _ln_inputs(cuda, 777, 32, 5)
+    want = _ln_run(_ln_kernel, x, w, b, dy)
+    wide = torch.zeros(777, 64, device=cuda)
+    wide[:, 16:48] = x
+    flat = torch.zeros(777 * 32 + 1, device=cuda)
+    flat[1:] = x.reshape(-1)
+    for base, view_of in ((wide, lambda t: t[:, 16:48]),
+                          (flat, lambda t: t[1:].view(777, 32))):
+        leaves = [t.detach().clone().requires_grad_() for t in (base, w, b)]
+        view = view_of(leaves[0])
+        assert not view.is_contiguous() or view.data_ptr() % 16
+        y = layer_norm.layer_norm(view, (32,), leaves[1], leaves[2], 1e-5)
+        grads = torch.autograd.grad(y, leaves, dy.t().contiguous().t())
+        got = (y, view_of(grads[0]), grads[1], grads[2])
+        assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_layer_norm_kernels_are_deterministic(cuda):
+    """Two runs at the ZTF decoder's 502,784 rows: y, dx, dγ and dβ
+    bitwise equal (the γ/β partials are added in a fixed order, no
+    atomics)."""
+    x, w, b, dy = _ln_inputs(cuda, 502_784, 32, 11)
+    first, second = (_ln_run(_ln_kernel, x, w, b, dy) for _ in range(2))
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+def test_layer_norm_graph_replay_is_the_eager_call(cuda):
+    """The forward and backward captured in a CUDA graph: a replay gives
+    the eager call's bits, also after new values in the static input; the
+    capture counts no launch."""
+    x, w, b, dy = _ln_inputs(cuda, 62_848, 32, 12)
+    x2 = _ln_inputs(cuda, 62_848, 32, 13)[0]
+    xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+
+    def call():
+        y = _ln_kernel(xs, ws, bs)
+        return (y, *torch.autograd.grad(y, (xs, ws, bs), dy))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _counts()
+    with torch.cuda.graph(graph):
+        out = call()
+    assert _counts()[5:] == (before[5] + 1, before[6] + 1, before[7])
+    for values in (x, x2):
+        with torch.no_grad():
+            xs.copy_(values)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = _ln_run(_ln_kernel, values, w, b, dy)
+        assert all(torch.equal(a, c) for a, c in zip(out, want))
+
+
+def test_layer_norm_under_bf16_autocast_is_the_fp32_path(cuda):
+    """Under bf16 autocast the kernels take the input cast to fp32 and give
+    fp32, as autocast's F.layer_norm does: an fp32 input gives the fp32
+    call's bits, forward and gradients; a bf16 input those of its fp32
+    cast."""
+    x, w, b, dy = _ln_inputs(cuda, 4096, 32, 14)
+    want = _ln_run(_ln_kernel, x, w, b, dy)
+    want16 = _ln_run(_ln_kernel, x.bfloat16().float(), w, b, dy)
+    before = _counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        got = _ln_run(_ln_kernel, x, w, b, dy)
+        y16 = _ln_kernel(x.bfloat16(), w, b)
+    assert got[0].dtype == torch.float32 and y16.dtype == torch.float32
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert torch.equal(y16, want16[0])
+    assert _counts()[5:] == (before[5] + 2, before[6] + 1, before[7])
+
+
+def test_layer_norm_counters_and_the_plain_calls(cuda):
+    """A TransformerStack of two blocks with a context, remat on: 6
+    LayerNorm forwards, 6 more in remat's re-run and 6 backwards, all on
+    the kernels; a width without an instantiation, a float64 input and a
+    LayerNorm over two axes compute F.layer_norm and count as plain; a CPU
+    call counts nowhere."""
+    stack = init_params(TransformerStack(32, 4, 32, 2, dropout=0.0, remat=True),
+                        torch.Generator().manual_seed(0)).to(cuda).train()
+    g = torch.Generator(cuda).manual_seed(15)
+    x = torch.randn(8, 60, 32, device=cuda, generator=g, requires_grad=True)
+    ctx = torch.randn(8, 5, 32, device=cuda, generator=g)
+    before = _counts()
+    stack(x, ctx).square().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(before, _counts()))[5:] == (12, 6, 0)
+    before = _counts()
+    for args in ((torch.randn(4, 48, device=cuda), (48,), torch.ones(48, device=cuda),
+                  torch.zeros(48, device=cuda)),
+                 (torch.randn(4, 32, device=cuda, dtype=torch.float64), (32,),
+                  torch.ones(32, device=cuda, dtype=torch.float64),
+                  torch.zeros(32, device=cuda, dtype=torch.float64)),
+                 (torch.randn(4, 2, 16, device=cuda), (2, 16), torch.ones(2, 16, device=cuda),
+                  torch.zeros(2, 16, device=cuda))):
+        torch.testing.assert_close(layer_norm.layer_norm(*args, 1e-5),
+                                   F.layer_norm(*args, 1e-5), rtol=0, atol=0)
+    layer_norm.layer_norm(torch.randn(4, 32), (32,), torch.ones(32), torch.zeros(32))
+    assert tuple(b - a for a, b in zip(before, _counts()))[5:] == (0, 0, 3)

@@ -2,6 +2,7 @@
 
 from .layers import (
     LN_EPS,
+    LayerNorm,
     MLP,
     MultiHeadAttention,
     PatchEmbedding,
@@ -31,7 +32,7 @@ from .spectra_layers import SpectraTransformerDecoder, SpectraTransformerEncoder
 
 __all__ = [
     "GumbelSoftmax", "HostImgTransformerDecoder", "HostImgTransformerDecoderHybrid",
-    "HostImgTransformerEncoder", "LN_EPS", "LearnableFourierEncoding", "MLP",
+    "HostImgTransformerEncoder", "LN_EPS", "LayerNorm", "LearnableFourierEncoding", "MLP",
     "MultiHeadAttention", "PatchEmbedding", "PhotometricTransformerDecoder",
     "PhotometricTransformerEncoder", "RelativeMultiHeadAttention", "RelativePosition",
     "SingleLayerMLP", "SinusoidalEmbedding", "SinusoidalMLPEmbedding",

@@ -13,6 +13,8 @@ onto the other mechanically:
     key-padding masks (True = ignore) folded in as a −1e9 bias, not −inf, so
     a fully masked row averages uniformly instead of giving NaN. Large grids
     (``ops.dispatch.routes_to_kernel``) go to the fused CUDA kernel.
+  * ``LayerNorm``: ``nn.LayerNorm`` computed by ``ops.layer_norm`` (the
+    port's CUDA kernels on the card, ``F.layer_norm`` on the CPU)
   * ``TransformerBlock`` (post-LN, LayerNorm eps 1e-5, exact erf GELU) and
     ``TransformerStack`` (each block rematerialised in the backward, as in
     the JAX package, unless ``VAESNE_REMAT=0``).
@@ -41,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import (attend, attention_weights, dropout_bits, fused_attention, partition,
                    pin_dropout_bits, routes_to_kernel)
+from ..ops.layer_norm import layer_norm
 from ..utils.rng import device_generator, maybe_fold_in
 
 LN_EPS = 1e-5  # torch nn.LayerNorm default, as in the JAX package
@@ -327,6 +330,16 @@ class MultiHeadAttention(nn.Module):
         return self.out_proj(out)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (same parameters, ``weight`` and ``bias``, same
+    state dict) whose forward is ``ops.layer_norm.layer_norm``: the
+    row-packed CUDA kernels for a CUDA input they take, ``F.layer_norm``
+    otherwise."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias, self.eps)
+
+
 class TransformerBlock(nn.Module):
     """Post-LN block with an optional cross-attention context:
 
@@ -348,16 +361,16 @@ class TransformerBlock(nn.Module):
                  dropout: float = 0.1, context_self_attn: bool = False):
         super().__init__()
         self.self_attn = MultiHeadAttention(embed_dim, num_heads, dropout)
-        self.layernorm1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.layernorm1 = LayerNorm(embed_dim, eps=LN_EPS)
         self.context_self_attn = None
         if context_self_attn:
             self.context_self_attn = MultiHeadAttention(embed_dim, num_heads, dropout)
-            self.layernorm_context = nn.LayerNorm(embed_dim, eps=LN_EPS)
+            self.layernorm_context = LayerNorm(embed_dim, eps=LN_EPS)
         self.cross_attn = MultiHeadAttention(embed_dim, num_heads, dropout)
-        self.layernorm2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.layernorm2 = LayerNorm(embed_dim, eps=LN_EPS)
         self.ffn_0 = nn.Linear(embed_dim, ff_dim)
         self.ffn_2 = nn.Linear(ff_dim, embed_dim)
-        self.layernorm3 = nn.LayerNorm(embed_dim, eps=LN_EPS)
+        self.layernorm3 = LayerNorm(embed_dim, eps=LN_EPS)
         self.dropout = dropout
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,

@@ -3,9 +3,12 @@
 Each kernel wrapper adds one to its counter where it launches its kernel:
 K1 ``attention.launches`` (and ``dropout_launches`` at a rate > 0), K2
 ``attention.bwd_launches``, K3 ``laplace.launches``, K4
-``laplace.bwd_launches``. A CUDA graph's replay runs no wrapper, so the
-train step's graph (``training.make_scan_epoch``) takes the launches its
-capture recorded off the counters and adds them back at every replay.
+``laplace.bwd_launches``, LN ``layer_norm.launches`` and LN bwd
+``layer_norm.bwd_launches``; LN plain (``layer_norm.plain_calls``) counts
+the CUDA LayerNorms that computed ``F.layer_norm`` instead. A CUDA graph's
+replay runs no wrapper, so the train step's graph
+(``training.make_scan_epoch``) takes the launches its capture recorded off
+the counters and adds them back at every replay.
 ``captures`` counts the CUDA graphs of the train step captured since
 import; a replay leaves it as it is.
 """
@@ -15,13 +18,15 @@ from __future__ import annotations
 import sys
 from typing import Dict, Mapping
 
-from . import attention, laplace
+from . import attention, laplace, layer_norm
 
 captures = 0
 
 COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_launches"),
             "K2": (attention, "bwd_launches"), "K3": (laplace, "launches"),
-            "K4": (laplace, "bwd_launches"), "captures": (sys.modules[__name__], "captures")}
+            "K4": (laplace, "bwd_launches"), "LN": (layer_norm, "launches"),
+            "LN bwd": (layer_norm, "bwd_launches"), "LN plain": (layer_norm, "plain_calls"),
+            "captures": (sys.modules[__name__], "captures")}
 
 
 def launch_counts() -> Dict[str, int]:

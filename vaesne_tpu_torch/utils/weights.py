@@ -112,7 +112,7 @@ def to_jax_params(module: nn.Module,
     values = dict(module.named_parameters()) if values is None else values
     tree: Dict[str, Dict] = {}
     for mod_name, mod in module.named_modules():
-        leaves = _TORCH_LEAF.get(type(mod), {})
+        leaves = next((v for k, v in _TORCH_LEAF.items() if isinstance(mod, k)), {})
         own = [n for n, _ in mod.named_parameters(recurse=False)]
         for name in own:
             leaf = leaves.get(name, name)
