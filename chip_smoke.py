@@ -59,9 +59,10 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      versions on its unmasked grids (900x900, 3,600x3,600, 400x400) and
      K1's keep rate at 900x900; (b) the bridged synthetic_image_4-4_patch2
      checkpoint's reconstruction on the card against the JAX package's
-     and against the port on the CPU; (c) train_image.main for 2 epochs,
-     then one epoch of the per-pixel decoder and of the MNIST config,
-     every epoch's launches checked, samples/s, peak memory, a
+     and against the port on the CPU; (c) train_image.main for 2 epochs
+     (512 images x aug_factor 5), then one epoch of the per-pixel decoder
+     and of the MNIST config, every epoch's launches (K1-LN and the conv
+     counter) checked, samples/s, peak memory, a
      kill-and-resume bitwise equal to the 2 epochs, and a profile of one
      step; (d) try_models model=image at K = 100; (e) the kernels' device
      times and bounds at the image grids;
@@ -1640,6 +1641,13 @@ def image_step_prediction(cfg):
     return (2 * n, 2 * n, n, 0, 0, 2 * ln, ln, 0)
 
 
+def image_conv_launches(cfg):
+    """Convolutions of one HostImgVAE forward (``conv``, a cuDNN launch
+    each): the patch convolution, and the hybrid decoder's two
+    refinements. Remat re-runs no convolution, and a backward adds none."""
+    return 1 + 2 * cfg.hybrid
+
+
 def phase_image_kernels():
     """Phase 12(a): K1 at rate 0 and 0.1 and K2 at rate 0.1 on the image
     grids at R = 32, unmasked, against their plain versions (by_rows) with
@@ -1706,14 +1714,17 @@ def phase_image_checkpoint():
     for device in ("cpu", "cuda"):
         m = copy.deepcopy(model).to(device)
         x = image_batch(ref.shape[0], device=device)
-        before = attention.launches, layer_norm.launches, layer_norm.plain_calls
+        before = (attention.launches, layer_norm.launches, layer_norm.plain_calls,
+                  counters.conv_launches)
         with torch.inference_mode():
             locs[device] = m.decode(m.encode(x)[None], x).loc[0].cpu().numpy()
         if device == "cuda":
             launched = attention.launches - before[0]
             ln = layer_norm.launches - before[1], layer_norm.plain_calls - before[2]
+            conv = counters.conv_launches - before[3]
             want = image_forward_launches(cfg, ref.shape[0], 1)
             assert launched == want and ln == (ln_launches(2), 0), (launched, want, ln)
+            assert conv == image_conv_launches(cfg), conv
     scale = np.abs(ref).max()
     rel_jax = np.abs(locs["cuda"] - ref).max() / scale
     rel_cpu = np.abs(locs["cuda"] - locs["cpu"]).max() / np.abs(locs["cpu"]).max()
@@ -1729,9 +1740,10 @@ def image_driver_args(seed, root, *extra):
 
 
 def phase_image_training(seed):
-    """Phase 12(c): train_image.main at the defaults (synthetic 512 images,
-    B = 32: 16 steps an epoch) for IMAGE_EPOCHS epochs, each epoch's
-    launches against image_step_prediction; samples/s per epoch (host
+    """Phase 12(c): train_image.main at the defaults (synthetic 512 images
+    ×aug_factor 5, B = 32: 80 steps an epoch) for IMAGE_EPOCHS epochs, each
+    epoch's launches against image_step_prediction and its convolutions
+    against image_conv_launches; samples/s per epoch (host
     clock from one epoch's end to the next, the save included); peak
     memory; then one epoch of the per-pixel decoder and one of the MNIST
     config; a run of one epoch resumed to IMAGE_EPOCHS, bitwise the first;
@@ -1751,17 +1763,21 @@ def phase_image_training(seed):
             now, counts = time.perf_counter(), kernel_counts()
             steps = state.step - mark["step"]
             got = tuple(c - p for c, p in zip(counts, mark["counts"]))
+            conv = counters.conv_launches - mark["conv"]
             log(12, f"(c) {label} epoch {epoch + 1}: loss {loss:.6f}, {steps} steps, "
-                    f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}")
+                    f"{now - mark['t']:.3f} s, launches {dict(zip(COUNTERS, got))}, conv {conv}")
             assert np.isfinite(loss) and got == tuple(steps * w for w in per_step), (got, steps)
+            assert conv == steps * image_conv_launches(cfg), (conv, steps)
             epoch_s.append((now - mark["t"], steps))
-            mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step)
+            mark.update(t=time.perf_counter(), counts=kernel_counts(), step=state.step,
+                        conv=counters.conv_launches)
 
         log(12, f"(c) {label}: predicted launches per step {dict(zip(COUNTERS, per_step))}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
-        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
+        mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0,
+                    conv=counters.conv_launches)
         state, losses = train_image.main(
             [*overrides, *image_driver_args(seed, os.path.join(root, label),
                                             f"train.epochs={epochs}")], callback=on_epoch)

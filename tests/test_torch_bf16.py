@@ -58,7 +58,7 @@ DRIVERS = {
     "ztf_spectra": (train_ztf_spectra, "ztf", TINY + ["repeat_factor=1"]),
     "contrastive": (train_contrastive, "goldstein", TINY + ["proj_dim=3"]),
     "image": (train_image, None, TINY + ["img_size=12", "model.model_dim=8",
-                                         "model.ff_dim=8"]),
+                                         "model.ff_dim=8", "aug_factor=1"]),
     "regression": (train_regression, "goldstein", ["modality=spec", "backbone=end2end"]),
 }
 

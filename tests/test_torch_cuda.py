@@ -514,6 +514,35 @@ def test_graph_replays_are_the_eager_steps(cuda):
     assert g_launches == e_launches and len(set(e_launches)) == 1
 
 
+def test_graph_replays_add_the_captured_convolutions(cuda):
+    """make_scan_epoch's CUDA graph of a small hybrid image VAE step (32x32
+    images, patch 2: the decoder's 256x256 self-attention on K1/K2, three
+    cuDNN convolutions a forward), over four one-step epochs: the warm-up
+    step, the capture and its replay, then two replays. Every step adds the
+    same launches to the counters, three to ``conv``, none to ``LN plain``."""
+    from vaesne_tpu_torch import HostImgVAE
+    from vaesne_tpu_torch.data import image_tuple, make_images
+    from vaesne_tpu_torch.ops import counters
+    from vaesne_tpu_torch.training import make_scan_epoch
+
+    model = init_params(HostImgVAE(img_size=32, latent_len=2, latent_dim=2, patch_size=2,
+                                   model_dim=32, num_heads=4, ff_dim=32, num_layers=1),
+                        torch.Generator().manual_seed(0))
+    opt = adamw(1e-3)
+    state = TrainState.create(model, opt, seed=0)
+    epoch = make_scan_epoch(model, opt, lambda m, b, s: objectives.elbo(m, b, 1, seed=s))
+    batch = image_tuple(make_images(n=4, img_size=32, seed=1), cuda)
+    launches = []
+    for i in range(4):
+        before = counters.launch_counts()
+        state, loss = epoch(state, batch, torch.Generator().manual_seed(i), 4)
+        after = counters.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after if k != "captures"})
+        assert np.isfinite(float(loss))
+    assert launches[0]["conv"] == 3 and launches[0]["LN plain"] == 0 and launches[0]["K2"] > 0
+    assert all(step == launches[0] for step in launches), launches
+
+
 def test_graph_epoch_counts_one_capture_and_its_spans_lie_on_the_device_clock(cuda, tmp_path):
     """Three one-step epochs of make_scan_epoch (the warm-up step, the
     capture and its replay, a replay) add one to ``counters.captures``, at

@@ -45,7 +45,7 @@ DRIVERS = {
     "ztf_spectra": (train_ztf_spectra, "ztf", ["repeat_factor=1"]),
     "contrastive": (train_contrastive, "goldstein", ["proj_dim=3"]),
     "image": (train_image, "image", ["img_size=12", "model.model_dim=8", "model.ff_dim=8",
-                                     "train.epochs=1"]),
+                                     "train.epochs=1", "aug_factor=1"]),
 }
 
 

@@ -21,7 +21,8 @@ TINY = ["img_size=12", "model.latent_len=2", "model.latent_dim=2", "model.model_
 
 
 def _argv(root, *extra):
-    return [*TINY, "train.save_every=1", f"train.ckpt_dir={root / 'ck'}",
+    # one copy of each image an epoch: the x5 copies are test_torch_image_reference's
+    return [*TINY, "aug_factor=1", "train.save_every=1", f"train.ckpt_dir={root / 'ck'}",
             f"train.log_dir={root / 'logs'}", *extra]
 
 

@@ -296,3 +296,47 @@ def test_decoder_at_a_kernel_grid_matches_pallas(kind, monkeypatch):
     got = tm(torch.from_numpy(z))
     assert calls == [(2, 256, 16)] * 2
     _close(got, want)
+
+
+def test_each_conv2d_call_adds_one_to_the_conv_counter():
+    """``conv2d`` adds one launch to ``conv`` a call, its backward none; an
+    image VAE's forward adds its convolutions: the patch convolution, and
+    the hybrid decoder's two refinements."""
+    from vaesne_tpu_torch import HostImgVAE
+    from vaesne_tpu_torch.ops import counters
+
+    def conv_delta(fn):
+        before = counters.launch_counts()
+        fn()
+        after = counters.launch_counts()
+        assert after["LN plain"] == before["LN plain"]
+        return after["conv"] - before["conv"]
+
+    conv = nn.Conv2d(3, 4, 2)
+    x = torch.randn(2, 3, 6, 6, requires_grad=True)
+    y = []
+    assert conv_delta(lambda: y.append(tlayers.conv2d(x, conv))) == 1
+    assert conv_delta(lambda: y[0].sum().backward()) == 0
+    images = (torch.randn(2, 3, 12, 12), torch.zeros(2, 0))
+    for hybrid, launches in ((True, 3), (False, 1)):
+        model = init_params(HostImgVAE(img_size=12, latent_len=2, latent_dim=2, patch_size=2,
+                                       hybrid=hybrid, **TOWER), torch.Generator().manual_seed(0))
+        assert conv_delta(lambda: model.eval()(images, 1)) == launches
+
+
+def test_a_replay_adds_its_captures_conv_launches():
+    """The ``conv`` counter moves with the others: set, and added to as a
+    replay adds its capture's launches."""
+    from vaesne_tpu_torch.ops import counters
+
+    counts = counters.launch_counts()
+    try:
+        counters.set_launch_counts({"conv": 10})
+        counters.add_launch_counts({"conv": 3, "K1": 0})
+        after = counters.launch_counts()
+        assert after["conv"] == counters.conv_launches == 13
+        assert {k: v for k, v in after.items() if k != "conv"} == {
+            k: v for k, v in counts.items() if k != "conv"}
+    finally:
+        counters.set_launch_counts({"conv": counts["conv"]})
+    assert counters.launch_counts() == counts

@@ -4,7 +4,10 @@ config).
 The counterpart of ``vaesne_tpu/experiments/train_image.py``:
 ``ImageVAEConfig`` (60×60×3, patch 2, the hybrid decoder, latent 4×4,
 model_dim 32, the ELBO at K = ``train.K``, AdamW lr 1e-3, batch 32), with
-fresh flips and affine warps drawn on the device every epoch.
+fresh flips and affine warps drawn on the device every epoch. The training
+images are repeated ``aug_factor`` (5) times, as upstream's
+``ImagePathDatasetAug`` serves each image five times an epoch; each copy
+takes its own flips and warp, so an epoch of 512 images is 2,560 samples.
 
   * ``dataset=synthetic`` (default): 512 images of ``data.make_images``;
   * ``dataset=mnist``: the MNIST smoke config (1 channel, patch 3, beta 0.1,
@@ -16,7 +19,7 @@ The checkpoint is ``{dataset}_image_{latent_len}-{latent_dim}_patch{p}``.
 
 Usage:
   python -m vaesne_tpu_torch.experiments.train_image [dataset=mnist] [data=/dir]
-      [train.epochs=150] [hybrid=false] ...
+      [train.epochs=150] [hybrid=false] [aug_factor=5] ...
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import sys
 import numpy as np
 
 from .. import objectives
-from ..data import ImagePathDataset, augment_images, image_tuple, make_images
+from ..data import ImagePathDataset, augment_images, image_tuple, make_images, repeat_dataset
 from ..models import HostImgVAE
 from ..utils.config import ImageVAEConfig, parse_overrides
 from .common import parse_cli, train_loop
@@ -109,7 +112,7 @@ def main(argv=None, device=None, callback=None):
     else:
         images = make_images(n=512, img_size=cfg.img_size, channels=cfg.in_channels,
                              seed=cfg.train.seed)
-    train_data = image_tuple(images, device)
+    train_data = repeat_dataset(image_tuple(images, device), cfg.aug_factor)
     model = build_model(cfg)
 
     m = cfg.model

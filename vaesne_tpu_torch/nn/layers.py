@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import (attend, attention_weights, dropout_bits, fused_attention, partition,
-                   pin_dropout_bits, routes_to_kernel)
+from ..ops import (attend, attention_weights, counters, dropout_bits, fused_attention,
+                   partition, pin_dropout_bits, routes_to_kernel)
 from ..ops.layer_norm import layer_norm
 from ..utils.rng import device_generator, maybe_fold_in
 
@@ -223,7 +223,9 @@ def cudnn_fp32_deterministic():
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` over NCHW ``x`` under ``cudnn_fp32_deterministic``."""
+    """``conv`` over NCHW ``x`` under ``cudnn_fp32_deterministic``; one
+    launch on the ``conv`` counter (``ops.counters``)."""
+    counters.conv_launches += 1
     with cudnn_fp32_deterministic():
         return conv(x)
 

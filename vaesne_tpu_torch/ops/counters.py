@@ -5,7 +5,9 @@ K1 ``attention.launches`` (and ``dropout_launches`` at a rate > 0), K2
 ``attention.bwd_launches``, K3 ``laplace.launches``, K4
 ``laplace.bwd_launches``, LN ``layer_norm.launches`` and LN bwd
 ``layer_norm.bwd_launches``; LN plain (``layer_norm.plain_calls``) counts
-the CUDA LayerNorms that computed ``F.layer_norm`` instead. A CUDA graph's
+the CUDA LayerNorms that computed ``F.layer_norm`` instead; conv
+(``conv_launches``, added by ``nn.layers.conv2d``) the convolutions of the
+image towers, one a call (cuDNN on the card). A CUDA graph's
 replay runs no wrapper, so the train step's graph
 (``training.make_scan_epoch``) takes the launches its capture recorded off
 the counters and adds them back at every replay.
@@ -21,12 +23,14 @@ from typing import Dict, Mapping
 from . import attention, laplace, layer_norm
 
 captures = 0
+conv_launches = 0
 
 COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_launches"),
             "K2": (attention, "bwd_launches"), "K3": (laplace, "launches"),
             "K4": (laplace, "bwd_launches"), "LN": (layer_norm, "launches"),
             "LN bwd": (layer_norm, "bwd_launches"), "LN plain": (layer_norm, "plain_calls"),
-            "captures": (sys.modules[__name__], "captures")}
+            "captures": (sys.modules[__name__], "captures"),
+            "conv": (sys.modules[__name__], "conv_launches")}
 
 
 def launch_counts() -> Dict[str, int]:
