@@ -852,11 +852,13 @@ def phase_times(model, seed, sm_clock_mhz):
         q, k, v, mask = attention_inputs(rows, NS, NS, True, seed=7)
         for dtype in (torch.float32, torch.bfloat16):
             qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            name = str(dtype).split(".")[-1]
+            assert_k1_route(6, f"attention_fwd R={rows} 982x982 {name}",
+                            lambda: attention.fused_attention(qd, kd, vd, mask, HEADS), dtype)
             ms = time_ms(lambda: attention.fused_attention(qd, kd, vd, mask, HEADS))
             lib = time_ms(sdpa_call(qd, kd, vd, mask))
             bound, by = attention_bound(rows, NS, NS, dtype, True)
             exp_ms = unit_floors(rows * HEADS * NS * NS, sm_clock_mhz)[0]
-            name = str(dtype).split(".")[-1]
             log(6, f"attention_fwd R={rows} 982x982 {name}: {ms:.3f} ms; bound {bound:.3f} ms "
                    f"({by}); exp2 floor {exp_ms:.3f} ms; library sdpa {lib:.3f} ms")
             res[(rows, dtype)] = (ms, bound, by, lib)
@@ -908,6 +910,21 @@ def kernel_counts():
 
 def reset_counts():
     counters.set_launch_counts(dict.fromkeys(COUNTERS, 0))
+
+
+def assert_k1_route(phase, label, fn, dtype=torch.float32):
+    """Run ``fn`` (K1 launches) and hold the ``K1 pipelined`` counter to the
+    ``K1`` counter where the inputs are fp32 (every grid timed here, 982²
+    and 900² at head size 8, is the pipelined kernel's) and to 0 in bf16.
+    Returns ``fn``'s result."""
+    before = counters.launch_counts()
+    result = fn()
+    after = counters.launch_counts()
+    k1, piped = (after[n] - before[n] for n in ("K1", "K1 pipelined"))
+    want = k1 if dtype == torch.float32 else 0
+    log(phase, f"{label}: K1 {k1}, K1 pipelined {piped} (predicted {want})")
+    assert k1 > 0 and piped == want, (label, k1, piped, want)
+    return result
 
 
 def assert_ln_engaged(label, launches, backward=None):
@@ -1096,7 +1113,8 @@ def phase_train_times(train, seed, sm_clock_mhz):
         fwd0 = time_ms(lambda: attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, 0.0))
         fwd = time_ms(lambda: attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, DROPOUT,
                                                             dseed))
-        out, m, l = attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, DROPOUT, dseed)
+        out, m, l = assert_k1_route(9, f"R={rows} 982x982 {name} rate 0.1", lambda: (
+            attention.fused_attention_fwd(qd, kd, vd, mask, HEADS, DROPOUT, dseed)), dtype)
         bwd = time_ms(lambda: attention.fused_attention_bwd(qd, kd, vd, mask, out, m, l, dd,
                                                             HEADS, DROPOUT, dseed))
         grads = attention.fused_attention_bwd(qd, kd, vd, mask, out, m, l, dd, HEADS, DROPOUT,
@@ -1517,7 +1535,8 @@ def phase_evaluation(seed):
     q, k, v, mask = store
     del store[:]
     with torch.inference_mode():
-        kernel = attention.fused_attention(q, k, v, mask, HEADS)
+        kernel = assert_k1_route(11, f"(e) R={rows} 982x982 fp32",
+                                 lambda: attention.fused_attention(q, k, v, mask, HEADS))
         torch.cuda.synchronize()
         errs = []
         for part in (slice(0, 64), slice(rows - 64, rows)):
@@ -1915,6 +1934,8 @@ def phase_image_times():
             r["b_f"] = attention_bound(rows, n, n, torch.float32, False, stats=True)
             r["b_b"] = attention_bwd_bound(rows, n, n, torch.float32)
         for key, fn in calls.items():
+            if key != "bwd" and n == IMAGE_TOKENS:
+                assert_k1_route(12, f"(e) R={rows} {n}x{n} fp32 ({label}) {key}", fn)
             r[key], kernels, _ = device_kernels(fn)
             assert kernels == 1, (label, key, kernels)
         if label == "image":

@@ -37,6 +37,8 @@ from vaesne_tpu_torch.nn import MultiHeadAttention, TransformerStack
 
 pytestmark = pytest.mark.cuda
 
+PIPE_MAX_KEYS = 1664  # 208 tiles of 8 keys: csrc/attention_fwd.cu PIPE_MAX_TILES
+
 
 @pytest.fixture
 def cuda():
@@ -86,6 +88,20 @@ GRIDS += [
     for lq, lk in ((15, 17), (16, 16), (17, 15), (63, 65), (64, 64), (65, 63), (127, 129),
                    (128, 128), (129, 127), (982, 5), (60, 4))
 ]
+# The cells' own fp32 grids (the flagship spectra decoder's R = 64 of
+# 982x982 masked; the image decoder's R = 32 of 900x900 unmasked), and
+# either side of the most keys the pipelined fp32 kernel stages (the fewest,
+# one chunk of 64, lies among the tile grids above).
+GRIDS += [(64, 4, 8, 982, 982, True), (32, 4, 8, 900, 900, False),
+          (2, 4, 8, 20, PIPE_MAX_KEYS, True), (2, 4, 8, 20, PIPE_MAX_KEYS + 1, True)]
+
+
+def _pipelined(dtype, Dh, Lk):
+    """The C dispatch's rule for K1's pipelined kernel, as the tests hold it:
+    fp32, head dim 8, from 64 keys up to what its shared memory holds."""
+    want = dtype == torch.float32 and Dh == 8 and 64 <= Lk <= PIPE_MAX_KEYS
+    assert attention.routes_pipelined(dtype, Dh, Lk) == want
+    return int(want)
 
 
 @pytest.mark.parametrize("R,H,Dh,Lq,Lk,masked", GRIDS)
@@ -93,13 +109,16 @@ def test_kernel_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
     """K1 at rate 0."""
     q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked)
     ref = attention.attention_reference(q, k, v, mask, H)
-    before = attention.launches
+    before, piped = attention.launches, attention.pipelined_launches
     out = attention.fused_attention(q, k, v, mask, H)
     torch.cuda.synchronize()
     assert attention.launches == before + 1
+    assert attention.pipelined_launches == piped + _pipelined(torch.float32, Dh, Lk)
     assert (out - ref).abs().max().item() <= 1e-5
+    piped = attention.pipelined_launches
     out16 = attention.fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, H)
     torch.cuda.synchronize()
+    assert attention.pipelined_launches == piped + _pipelined(torch.bfloat16, Dh, Lk)
     assert out16.dtype == torch.bfloat16
     assert _rel(out16, ref) <= 2e-2
 
@@ -111,10 +130,11 @@ def test_dropout_forward_matches_plain_version(cuda, R, H, Dh, Lq, Lk, masked):
     q, k, v, mask = _inputs(cuda, R, H, Dh, Lq, Lk, masked, seed=1)
     for seed in (7, 2**32 - 5):
         ref = attention.attention_reference(q, k, v, mask, H, 0.1, seed)
-        before = attention.dropout_launches
+        before, piped = attention.dropout_launches, attention.pipelined_launches
         out = attention.fused_attention(q, k, v, mask, H, 0.1, seed)
         torch.cuda.synchronize()
         assert attention.dropout_launches == before + 1
+        assert attention.pipelined_launches == piped + _pipelined(torch.float32, Dh, Lk)
         assert (out - ref).abs().max().item() <= 1e-5
         out16 = attention.fused_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask, H,
                                           0.1, seed)
@@ -157,17 +177,18 @@ def test_kernels_are_deterministic(cuda, dtype):
     """K1 (with its statistics) and K2 twice on the same inputs at rate
     0.1: bitwise-equal outputs, statistics and gradients (no atomics; every
     sum in a fixed order)."""
-    q, k, v, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
-                     for t in _inputs(cuda, 4, 4, 8, 982, 982, True, seed=4))
-    dout = _randn_like(q, seed=14)
-    runs = []
-    for _ in range(2):
-        out, m, l = attention.fused_attention_fwd(q, k, v, mask, 4, 0.1, 21)
-        grads = attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, 4, 0.1, 21)
-        runs.append((out, m, l, *grads))
-    torch.cuda.synchronize()
-    for a, b in zip(*runs):
-        assert torch.equal(a, b)
+    for L, masked in ((982, True), (900, False)):
+        q, k, v, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
+                         for t in _inputs(cuda, 4, 4, 8, L, L, masked, seed=4))
+        dout = _randn_like(q, seed=14)
+        runs = []
+        for _ in range(2):
+            out, m, l = attention.fused_attention_fwd(q, k, v, mask, 4, 0.1, 21)
+            grads = attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, 4, 0.1, 21)
+            runs.append((out, m, l, *grads))
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
 
 def test_misaligned_views_match_aligned_inputs(cuda):
@@ -190,6 +211,46 @@ def test_misaligned_views_match_aligned_inputs(cuda):
     torch.cuda.synchronize()
     for a, b in zip((out, m, l, *grads), got):
         assert torch.equal(a, b)
+
+
+def test_attention_graph_replay_is_the_eager_call(cuda):
+    """K1 (with its statistics, at rate 0.1, its seed read from the seed
+    word) and K2 captured in a CUDA graph on 982x982 fp32, the pipelined
+    kernel's grid: a replay gives the eager calls' bits, also after new
+    values in the static input and the seed word; the capture counts one
+    launch of each, K1 pipelined among them."""
+    q, k, v, mask = _inputs(cuda, 4, 4, 8, 982, 982, True, seed=6)
+    q2 = _randn_like(q, seed=16)
+    dout = _randn_like(q, seed=17)
+    word = attention.seed_word(31, cuda)
+    qs = q.clone()
+
+    def call():
+        out, m, l = attention.fused_attention_fwd(qs, k, v, mask, 4, 0.1, word)
+        return (out, m, l, *attention.fused_attention_bwd(qs, k, v, mask, out, m, l, dout, 4,
+                                                           0.1, word))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (attention.launches, attention.pipelined_launches, attention.bwd_launches)
+    with torch.cuda.graph(graph):
+        got = call()
+    assert (attention.launches, attention.pipelined_launches, attention.bwd_launches) == tuple(
+        n + 1 for n in before)
+    for values, seed in ((q, 31), (q2, 32)):
+        with torch.no_grad():
+            qs.copy_(values)
+            word.copy_(attention.seed_word(seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        out, m, l = attention.fused_attention_fwd(values, k, v, mask, 4, 0.1, seed)
+        want = (out, m, l, *attention.fused_attention_bwd(values, k, v, mask, out, m, l, dout,
+                                                           4, 0.1, seed))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_dropout_keep_rate(cuda):

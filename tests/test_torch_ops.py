@@ -16,6 +16,7 @@ from vaesne_tpu.ops import fused_attention as jax_fused_attention
 from vaesne_tpu.ops.attention import _hash_bits
 from vaesne_tpu.ops.dispatch import env_flag as jax_env_flag
 import vaesne_tpu_torch.ops.attention as port_attention
+from vaesne_tpu_torch.ops import counters
 from vaesne_tpu_torch.ops import (
     attention_backward_reference,
     attention_reference,
@@ -257,3 +258,25 @@ def test_misaligned_views_are_copied_for_the_kernels():
     assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
     aligned = torch.zeros(2, 4, 8)
     assert port_attention._aligned(aligned) is aligned
+
+
+def test_pipelined_counter_moves_with_the_others_and_the_plain_path_leaves_it():
+    """``K1 pipelined`` is one of the port's counters: read, set and added
+    to (a graph replay's launches) with the others; CPU tensors take the
+    plain version and count no launch."""
+    counts = counters.launch_counts()
+    assert counts["K1 pipelined"] == port_attention.pipelined_launches
+    try:
+        counters.set_launch_counts({"K1": 5, "K1 pipelined": 3})
+        assert (port_attention.launches, port_attention.pipelined_launches) == (5, 3)
+        counters.add_launch_counts({"K1": 8, "K1 rate>0": 0, "K1 pipelined": 8})
+        after = counters.launch_counts()
+        assert (after["K1"], after["K1 pipelined"]) == (13, 11)
+        assert after["K2"] == counts["K2"] and after["K1 rate>0"] == counts["K1 rate>0"]
+    finally:
+        counters.set_launch_counts({k: counts[k] for k in ("K1", "K1 pipelined")})
+    assert counters.launch_counts() == counts
+    q, k, v, mask = (torch.from_numpy(a) for a in _inputs(4, 2, 4, 70, 982))
+    for rate in (0.0, 0.1):
+        fused_attention_fwd(q, k, v, mask, 4, rate, 3)
+    assert counters.launch_counts() == counts

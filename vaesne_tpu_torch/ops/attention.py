@@ -10,8 +10,13 @@ Kernels, in ``csrc/``:
 
 * K1 ``attention_fwd.cu`` replaces ``vaesne_tpu/ops/attention.py::_fwd_kernel``
   (both rates). A warp per 16 queries, an online exp2-domain softmax over
-  key chunks staged in shared memory by cp.async; with a gradient to come it
-  also writes the row max m and row sum l of the exp2-domain logits.
+  key chunks; with a gradient to come it also writes the row max m and row
+  sum l of the exp2-domain logits. fp32 at head size 8 with 64 to 1664 keys
+  (``routes_pipelined``; counted in ``pipelined_launches``) takes the
+  pipelined kernel: a block per (row, head) stages all its keys once, split
+  into TF32 planes, and the next chunk's scores run on ``wgmma`` while the
+  current chunk's softmax and PV products run. The rest streams key chunks
+  through shared memory by cp.async.
 * K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: one kernel, a block per
   (row, head) and a warp per 16 keys, which recomputes p = exp2(s − m)/l
   and the dropout mask once per (query, key, head), sums dk and dv in
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import math
 import os
 import threading
@@ -70,6 +76,7 @@ Seed = Union[int, torch.Tensor]  # an int, or a seed word on the tensors' device
 
 launches = 0          # K1 launches (any rate) since the last reset
 dropout_launches = 0  # K1 launches at a dropout rate > 0
+pipelined_launches = 0  # K1 launches that took the pipelined fp32 kernel
 bwd_launches = 0      # K2 launches: one per backward
 
 HEAD_DIMS = (4, 8, 16, 32)
@@ -282,6 +289,30 @@ def _word(rate, seed, device) -> Optional[torch.Tensor]:
     return seed_word(seed, device) if rate > 0.0 else None
 
 
+_ready_devices = set()  # devices on which vaesne_attention_fwd_init has run
+
+
+def _fwd_kernel(device: torch.device):
+    """K1's C entry point, with the library's per-device set-up (the
+    pipelined kernel's shared-memory limit, the SM count) run once per device
+    first; call with ``device`` current."""
+    fn = _build.function("attention_fwd", "vaesne_attention_fwd", _FWD_ARGS)
+    if device.index not in _ready_devices:
+        init = _build.function("attention_fwd", "vaesne_attention_fwd_init", ())
+        _build.check(init(), "attention_fwd set-up")
+        _ready_devices.add(device.index)
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def routes_pipelined(dtype: torch.dtype, head_dim: int, lk: int) -> bool:
+    """Whether K1 takes its pipelined fp32 kernel for these inputs: the C
+    dispatch's own rule (fp32, Dh 8, Lk from one full chunk of 64 keys up to
+    what shared memory holds), asked of the library."""
+    fn = _build.function("attention_fwd", "vaesne_attention_fwd_pipelined", (_i, _i, _i))
+    return bool(fn(_DTYPE_CODES[dtype], head_dim, lk))
+
+
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -319,17 +350,18 @@ def fused_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.empty_like(m)
     if R == 0 or lq == 0:
         return out, m, l
-    fn = _build.function("attention_fwd", "vaesne_attention_fwd", _FWD_ARGS)
     word = _word(dropout_rate, seed, q.device)
     with torch.cuda.device(q.device):
+        fn = _fwd_kernel(q.device)
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), _ptr(m), _ptr(l), R, lq, k.shape[1], num_heads,
                 e // num_heads, _DTYPE_CODES[q.dtype], *_dropout_args(dropout_rate, word, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_fwd")
-    global launches, dropout_launches
+    global launches, dropout_launches, pipelined_launches
     launches += 1
     dropout_launches += dropout_rate > 0.0
+    pipelined_launches += routes_pipelined(q.dtype, e // num_heads, k.shape[1])
     return out, m, l
 
 

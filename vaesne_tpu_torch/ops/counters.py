@@ -1,7 +1,8 @@
 """The port's counters, read and moved together.
 
 Each kernel wrapper adds one to its counter where it launches its kernel:
-K1 ``attention.launches`` (and ``dropout_launches`` at a rate > 0), K2
+K1 ``attention.launches`` (and ``dropout_launches`` at a rate > 0,
+``pipelined_launches`` where the launch took the pipelined fp32 kernel), K2
 ``attention.bwd_launches``, K3 ``laplace.launches``, K4
 ``laplace.bwd_launches``, LN ``layer_norm.launches`` and LN bwd
 ``layer_norm.bwd_launches``; LN plain (``layer_norm.plain_calls``) counts
@@ -26,6 +27,7 @@ captures = 0
 conv_launches = 0
 
 COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_launches"),
+            "K1 pipelined": (attention, "pipelined_launches"),
             "K2": (attention, "bwd_launches"), "K3": (laplace, "launches"),
             "K4": (laplace, "bwd_launches"), "LN": (layer_norm, "launches"),
             "LN bwd": (layer_norm, "bwd_launches"), "LN plain": (layer_norm, "plain_calls"),
