@@ -81,8 +81,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      eval_regression.main on the bridged goldstein_photometry2param_mmvae
      head against the JAX package's CPU result;
  14. multi-GPU on the one card (vaesne_tpu_torch.parallel; spawned ranks,
-     each its own process): (a) a world-1 NCCL group's DDP flagship step
-     at B = 192 against the one-process step; (b) two ranks sharing the
+     each its own process): (a) a world-1 NCCL group's data-parallel
+     flagship step at B = 192 against the one-process step; (b) two ranks sharing the
      card over gloo, 96 events each, at dropout 0 and 0.1 against the
      one-process step, every rank's launches as the global-row dispatch
      predicts, K1/K2 held against their plain versions on every rank's
@@ -137,7 +137,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
  18. train.scan_epoch under a data-parallel train.mesh: the step as two
      CUDA graphs per rank (the gradients; the update) around the gradient
      all-reduce, which runs eagerly between their replays, against the DDP
-     step loop (spawned ranks on the one card): (a) a world-1 NCCL group
+     step loop (tests/torch_dp_workers.py's ddp_epoch, torch's
+     DistributedDataParallel; spawned ranks on the one card): (a) a world-1 NCCL group
      runs train_photospectra inside its rank for an epoch in fp32 on 128
      synthetic events (6 steps), the two bitwise equal with phase 10's
      launches; (b) two ranks sharing the card over gloo, 8 events a rank,
@@ -156,7 +157,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      sharing the card (16 events a rank): each (micro)batch's step split at
      InfoNCE's gather into CUDA graphs of the towers, the head and the
      towers' backward, the gather's two all-reduces and the gradient
-     all-reduce eager between them, against the DDP step loop: (a)
+     all-reduce eager between them, against the DDP step loop
+     (tests/torch_dp_workers.py's ddp_epoch): (a)
      model.selfattn=true in fp32 (3 epochs, the graph run's epoch-2
      checkpoint resumed under the graph) and VAESNE_BF16=1 (1 epoch), each
      bitwise its step loop, every rank's K1/K2 launches as predicted and
@@ -2643,8 +2645,8 @@ def _check_masks(label, table, phase=14, length=NS):
 
 def phase_multigpu(seed):
     """Phase 14, multi-GPU on one card (``parallel``): (a) a world-1 NCCL
-    group runs the DDP flagship step at B = 192, equal to the one-process
-    step; (b) two ranks share the card over gloo, 96 events each, at
+    group runs the data-parallel flagship step at B = 192, equal to the
+    one-process step; (b) two ranks share the card over gloo, 96 events each, at
     dropout 0 and 0.1 (against the one-process step: loss within 1e-4
     relative, parameters within 1e-3 of max |param|; at 0.1 every rank's
     launches as predicted with global rows, K1/K2 held against their plain
@@ -2669,7 +2671,7 @@ def phase_multigpu(seed):
     world1 = parallel.make_mesh(["cuda:0"])
     assert world1.backend == "nccl", world1
     loss, params, table = parallel.launch(rank_step, world1, seed, batch, DROPOUT, 1, False)
-    _check_step("(a) world-1 NCCL DDP step, dropout 0.1", loss, params, loss1, params1, 1e-6,
+    _check_step("(a) world-1 NCCL DP step, dropout 0.1", loss, params, loss1, params1, 1e-6,
                 1e-6)
     res["nccl"] = _check_launches("(a)", table, pred1)
 
@@ -3507,10 +3509,44 @@ def _same_state(a, b):
             and all(torch.equal(x, y) for x, y in zip(ta, tb)))
 
 
+def ddp_reference():
+    """``tests/torch_dp_workers.py``, whose ``ddp_epoch`` is the DDP step
+    loop (torch's DistributedDataParallel) that the data-parallel graph is
+    held to; it imports torch and the port alone."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_dp_workers
+
+    return torch_dp_workers
+
+
+@contextlib.contextmanager
+def ddp_step_loop():
+    """A driver's ``train.scan_epoch=false`` runs ``ddp_reference()``'s DDP
+    step loop in place of the port's step loop (``train_loop`` builds its
+    epoch function through ``common.make_scan_epoch``)."""
+    from vaesne_tpu_torch.experiments import common
+
+    reference, original = ddp_reference(), common.make_scan_epoch
+
+    def make_scan_epoch(*args, graph=True, **kwargs):
+        if graph:
+            return original(*args, **kwargs)
+        return reference.ddp_epoch(*args, **kwargs)
+
+    common.make_scan_epoch = make_scan_epoch
+    try:
+        yield
+    finally:
+        common.make_scan_epoch = original
+
+
 def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=False,
               resume=False, hold=False, phase=17, length=NS):
     """``main(argv)`` with train.scan_epoch=true (the graph) and false (the
-    step loop), from one seed: each epoch's launches against ``per_step``;
+    step loop; under a mesh the DDP step loop, ``ddp_step_loop``), from one
+    seed: each epoch's launches against ``per_step``;
     epoch 2's samples/s (host clock from one epoch's end to the next, the
     save included; ``batch_size`` events a step), epoch 3's busy share
     (``profile``: device activity alone) and the run's peak memory; each
@@ -3561,8 +3597,11 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
         torch.cuda.reset_peak_memory_stats()
         captured, start = counters.captures, kernel_counts()
         mark.update(t=time.perf_counter(), counts=start, step=0)
-        with capture_graph_kernel_input(store, length) if hold and name == "graph" else (
-                contextlib.nullcontext()):
+        with contextlib.ExitStack() as stack:
+            if hold and name == "graph":
+                stack.enter_context(capture_graph_kernel_input(store, length))
+            if mesh is not None and name == "eager":
+                stack.enter_context(ddp_step_loop())
             state, losses = main([*argv, *driver_args(seed, root, f"train.epochs={epochs}",
                                                        "train.save_every=1",
                                                        f"train.scan_epoch={scan}")],
@@ -3779,9 +3818,10 @@ def _rank_table(counts, store, peak, phase=18):
 def rank_step_pair(seed):
     """bench.py's B = 192 m-IWAE step over this rank's mesh (96 events a
     rank on two), as make_scan_epoch epochs of GRAPH_STEPS steps, the DP
-    graph against the DDP step loop from the same weights: every rank's
-    launches per step as the global-row prediction, epoch 2's samples/s a
-    rank (host clock, ending in the epoch's one sync), rank 0's busy share
+    graph against the DDP step loop (``ddp_reference().ddp_epoch``) from
+    the same weights: every rank's launches per step as the global-row
+    prediction, epoch 2's samples/s a rank (host clock, ending in the
+    epoch's one sync), rank 0's busy share
     of its own kernels in epoch 3, every rank's peak memory, the two runs
     bitwise equal on every rank. Returns (rank 0's numbers, per-rank [rate,
     peak] of each run)."""
@@ -3797,8 +3837,8 @@ def rank_step_pair(seed):
         model = flagship(seed)
         opt = adamw(LR)
         state = TrainState.create(model, opt, seed=seed)
-        run = training.make_scan_epoch(model, opt, m_iwae_loss, accum_reduction="sum",
-                                       mesh=mesh, graph=graph)
+        make = training.make_scan_epoch if graph else ddp_reference().ddp_epoch
+        run = make(model, opt, m_iwae_loss, accum_reduction="sum", mesh=mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         numbers, prof = {}, epoch_profiler() if r == 0 else None

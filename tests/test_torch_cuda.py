@@ -654,7 +654,8 @@ def test_graph_of_a_world1_dp_step_is_the_ddp_step_loop(cuda):
     card): the step as two CUDA graphs, the gradients and the update, with
     the gradient all-reduce eager between their replays, over three
     two-step epochs (a warm-up step, the capture and its replay, then
-    replays), against the DDP step loop: losses, parameters, AdamW moments,
+    replays), against the DDP step loop (``torch_dp_workers.ddp_epoch``:
+    torch's DistributedDataParallel): losses, parameters, AdamW moments,
     step and generator bitwise equal; the 300-bin decoder's attention on
     K1/K2 at dropout 0.1 with the rank's shard seed."""
     import torch_dp_workers

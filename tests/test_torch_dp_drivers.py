@@ -80,8 +80,8 @@ def test_each_driver_trains_data_parallel_as_one_process(tmp_path, name):
 def test_info_nce_gradients_on_two_ranks_match_one_process(dtype):
     """One InfoNCE step of a two-tower model (dropout 0.1) on 8 events, 4 a
     rank: both projections are gathered from the ranks, and the gradient
-    the step applies (the gather's backward, then DDP's mean) is the one
-    process's. In fp64 within 1e-9 of the largest entry of the whole
+    the step applies (the gather's backward, then the mean over the
+    ranks) is the one process's. In fp64 within 1e-9 of the largest entry of the whole
     gradient, which only the same function gives. In fp32 the loss within
     1e-5 relative and the gradient within 5e-4 of its largest entry: at
     random weights the loss sits at ln B, the gradient (~2e-2) is what is

@@ -3,9 +3,10 @@ under a mesh with ``objectives.gathered``'s split, ``training._GatheredStep``)
 on two gloo ranks on the CPU: its stages (the towers, the gather's
 all-reduce, the head, the gather's backward all-reduce, the towers'
 backward, then the gradient all-reduce and the update) against the DDP step
-loop bitwise, with and without the context self-attention, remat on and
-off, one and two accumulation steps, and against the JAX package's scanned
-epoch on two devices.
+loop (torch's ``DistributedDataParallel`` around the unsplit objective,
+``torch_dp_workers.ddp_epoch``) bitwise, with and without the context
+self-attention, remat on and off, one and two accumulation steps, and
+against the JAX package's scanned epoch on two devices.
 
 On the CPU the stages run eagerly at every step; the graphs and their
 replays run on the card only (``chip_smoke.py`` phase 18). The ranks run

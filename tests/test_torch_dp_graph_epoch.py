@@ -1,10 +1,11 @@
 """The data-parallel graph epoch of the port (``training.make_scan_epoch``
 under a mesh) on gloo ranks on the CPU: its three stages (the gradients,
-the all-reduce, the update) against the DDP step loop bitwise, against the
+the all-reduce, the update) against the DDP step loop bitwise (torch's
+``DistributedDataParallel``, ``torch_dp_workers.ddp_epoch``), against the
 JAX package's scanned epoch on two devices, the seeds a replay would write
-on each rank against the eager DDP step's, ``train.scan_epoch`` through a
-driver at ``train.mesh=2`` and its resume, the tensor-parallel mesh whose
-step runs a collective inside it, which keeps the step loop, and
+on each rank against the DDP step's, ``train.scan_epoch`` through a driver
+at ``train.mesh=2`` and its resume, the tensor-parallel mesh whose step
+runs a collective inside it, which keeps the step loop, and
 ``train_contrastive``, whose gather the graph splits its step at.
 
 On the CPU the stages run eagerly at every step; the graphs and their
@@ -173,7 +174,8 @@ def test_the_dp_graph_epoch_tracks_the_jax_dp_scan_epoch(ranks, monkeypatch, fix
 def test_a_rank_replay_recomputes_its_shard_seeds(ranks):
     """On each of two ranks, the data-parallel step's tape, recorded once
     at one step seed and recomputed for others, gives site by site the
-    (kind, seed) of the DDP step's draw sites at that seed: each posterior
+    (kind, seed) of the DDP step's draw sites at that seed
+    (``torch_dp_workers.ddp_train_step``): each posterior
     and dropout generator (the whole step's draw, of which the rank keeps
     its part) and each K1/K2 seed word, the step's seed plus the rank's
     shard offset. Every site keeps its path from the step's seed; rank 1's
@@ -210,13 +212,15 @@ def _train(driver, npz, root, mesh, *extra):
 
 def test_the_driver_writes_one_checkpoint_under_the_dp_graph_and_resumes(npz, tmp_path,
                                                                            capfd):
-    """``train_photometry`` at ``train.mesh=2``: two epochs of the DDP step
-    loop (``train.scan_epoch=false``) against one epoch of the graph's
-    stages (``true``) resumed under the graph to the second: the same
-    losses and bitwise the same checkpoint (parameters, AdamW moments,
-    step, generator), and no step-loop line. With
+    """``train_photometry`` at ``train.mesh=2``: two epochs of the step
+    loop (``train.scan_epoch=false``: the stages run eagerly) against one
+    epoch of the graph's stages (``true``) resumed under the graph to the
+    second: the same losses and bitwise the same checkpoint (parameters,
+    AdamW moments, step, generator), and no step-loop line. With
     ``test_torch_dp_train.py``'s resume under the graph, the graph's
-    uninterrupted run is the step loop's too."""
+    uninterrupted run is the step loop's too. The stages are held to the
+    DDP step loop bitwise by
+    ``test_the_dp_graph_stages_are_the_ddp_step_loop_bitwise``."""
     loop, loop_losses = _train(train_photometry, npz, tmp_path / "loop", "2",
                                "train.scan_epoch=false")
     _train(train_photometry, npz, tmp_path / "graph", "2", "train.epochs=1")
@@ -240,7 +244,8 @@ def test_a_collective_inside_the_step_keeps_the_step_loop(npz, tmp_path, capfd, 
     inside its step too, but the graph splits the step at the gather and
     runs its all-reduces between the stages: no step-loop line, and one
     epoch resumed under the graph to the second writes bitwise the
-    checkpoint of two epochs of the DDP step loop."""
+    checkpoint of two epochs of the step loop (the stages eagerly), which
+    ``test_torch_dp_graph_contrastive.py`` holds to the DDP step loop."""
     if case == "tensor parallel":
         _train(train_photometry, npz, tmp_path, "1x2")
         lines = [line for line in capfd.readouterr().out.splitlines() if "step loop" in line]

@@ -102,7 +102,8 @@ def test_eval_goldstein_on_two_ranks_writes_the_one_process_results(tmp_path):
 def test_a_frozen_backbone_trains_data_parallel(tmp_path):
     """``train_regression`` over a frozen MMVAE backbone on two ranks: the
     one process's losses, the frozen parameters bitwise theirs and outside
-    DDP and AdamW (``opt_mask`` is resolved before the ranks start)."""
+    the gradient all-reduce and AdamW (``opt_mask`` is resolved before the
+    ranks start)."""
     npz = tmp_path / "g.npz"
     np.savez(npz, **make_goldstein_like(n=40, seed=1, spectrum_bins=48, photometry_length=12))
     argv = [f"data={npz}", "modality=photometry", "backbone=mmvae", "train.batch_size=8",

@@ -3,7 +3,12 @@
 ``parallel.launch`` spawns its ranks, which unpickle these functions by
 module name: this module imports torch, numpy and the port alone, so no rank
 imports jax. Each returns plain tensors, arrays or lists, which rank 0
-hands back to the test."""
+hands back to the test.
+
+``ddp_train_step`` and ``ddp_epoch`` are the reference the port's
+data-parallel step is held to: torch's ``DistributedDataParallel`` around
+the objective, built here from the port's public pieces and none of its
+data-parallel code (``chip_smoke.py`` phases 18 and 19 use them too)."""
 
 import contextlib
 import copy
@@ -22,8 +27,11 @@ from vaesne_tpu_torch.parallel import (
     shard_data_parallel,
     shard_state_tp,
 )
-from vaesne_tpu_torch.parallel.mesh import data_group, model_group
+from vaesne_tpu_torch.nn.layers import autocast, cudnn_fp32_deterministic, resolve_precision
+from vaesne_tpu_torch.ops import partition
+from vaesne_tpu_torch.parallel.mesh import data_group, model_group, shard_batch, shard_of
 from vaesne_tpu_torch.serving import InferenceServer
+from vaesne_tpu_torch.utils import fold_in
 
 
 def noise(shape):
@@ -59,6 +67,115 @@ def pinned_noise(shared=False):
         tdist.Laplace.sample = original
 
 
+class _Objective(torch.nn.Module):
+    """The step's loss as a module, so that DDP wraps the whole objective
+    and the loss function still gets the model itself."""
+
+    def __init__(self, model, neg_loss):
+        super().__init__()
+        self.model = model
+        self.neg_loss = neg_loss
+
+    def forward(self, batch, seed):
+        return self.neg_loss(self.model, batch, seed)
+
+
+def _sum_hook(group, bucket):
+    """DDP comm hook: sum the bucket over the group (the default averages)."""
+    work = torch.distributed.all_reduce(bucket.buffer(), group=group, async_op=True)
+    return work.get_future().then(lambda fut: fut.value()[0])
+
+
+def _microbatch(batch, i, accum_steps):
+    """Part ``i`` of ``accum_steps`` equal parts of dim 0 of every array of
+    ``batch`` (a nested tuple)."""
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(_microbatch(b, i, accum_steps) for b in batch)
+    size = batch.shape[0] // accum_steps
+    return batch[i * size:(i + 1) * size]
+
+
+def ddp_train_step(model, optimizer, loss_fn, accum_steps=1, reduction="mean", device=None,
+                   mesh=None, precision=None):
+    """The data-parallel train step of ``training.make_train_step(mesh=)``
+    as torch's DDP runs it, ``step(state, batch) -> (state, loss)``: DDP
+    over the data group around the objective, built at the first step
+    (its constructor broadcasts the data group's first rank's parameters
+    and buffers), the gradients averaged by its reducer or, for a
+    ``"sum"`` objective, summed by a comm hook; ``no_sync`` over every
+    microbatch but the last (microbatch i of the global batch at
+    ``fold_in(seed, i)``, each rank's slice of it under the shard), the
+    gradients and loss divided by the microbatch count for ``"mean"``;
+    the loss all-reduced (÷ n for ``"mean"``); the global-norm clip over
+    the trainable gradients and the AdamW update. A data-parallel mesh
+    only: a tensor-parallel model's clip norm spans the model group."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if mesh.model > 1:
+        raise ValueError("the DDP reference runs a data-parallel mesh only")
+    device = ttr.resolve_device(device)
+    precision = resolve_precision(precision)
+    shard = shard_of(mesh)
+    wrapped = []
+
+    def neg_loss(m, b, seed):
+        with autocast(precision, device):
+            return -loss_fn(m, shard_batch(b, mesh), seed)
+
+    def step(state, batch):
+        if not wrapped:
+            ddp = DistributedDataParallel(_Objective(model, neg_loss),
+                                          process_group=shard.data_group)
+            if reduction == "sum":
+                ddp.register_comm_hook(shard.data_group, _sum_hook)
+            wrapped.append(ddp)
+        ddp = wrapped[0]
+        batch, seed = ttr.to_device(batch, device), ttr.draw_seed(state.generator)
+        state.optimizer.zero_grad(set_to_none=True)
+        with cudnn_fp32_deterministic(), partition.sharded(shard):
+            if accum_steps == 1:
+                loss = ddp(batch, seed)
+                loss.backward()
+                loss = loss.detach()
+            else:
+                loss = None
+                for i in range(accum_steps):
+                    micro = _microbatch(batch, i, accum_steps)
+                    with ddp.no_sync() if i < accum_steps - 1 else contextlib.nullcontext():
+                        part = ddp(micro, fold_in(seed, i))
+                        part.backward()
+                    loss = part.detach() if loss is None else loss + part.detach()
+                if reduction == "mean":
+                    torch._foreach_mul_([p.grad for p in model.parameters()
+                                         if p.grad is not None], 1.0 / accum_steps)
+                    loss = loss * (1.0 / accum_steps)
+        torch.distributed.all_reduce(loss, group=shard.data_group)
+        if reduction == "mean":
+            loss = loss / shard.n_data
+        if optimizer.grad_clip is not None:
+            ttr.clip_by_global_norm([p.grad for p in state.trainable_parameters()
+                                     if p.grad is not None], optimizer.grad_clip)
+        state.optimizer.step()
+        state.step += 1
+        return state, loss
+
+    return step
+
+
+def ddp_epoch(model, optimizer, loss_fn, accum_steps=1, accum_reduction="mean", device=None,
+              mesh=None, precision=None):
+    """``ttr.train_epoch`` over ``ddp_train_step``: the DDP step loop,
+    ``run(state, data, generator, batch_size) -> (state, mean loss)``, in
+    ``training.make_scan_epoch``'s order of arguments."""
+    step = ddp_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device, mesh,
+                          precision)
+
+    def run(state, data, generator, batch_size):
+        return ttr.train_epoch(state, step, data, batch_size, generator)
+
+    return run
+
+
 def train_steps(model, batch, steps, K=2, reduction="sum", pinned=True, accum_steps=1,
                 lr=1e-3):
     """``steps`` m-IWAE steps of ``model`` on ``batch`` on this rank's mesh
@@ -81,9 +198,9 @@ def train_steps(model, batch, steps, K=2, reduction="sum", pinned=True, accum_st
 
 def scan_epochs(model, data, epochs, batch_size, K=2, reduction="sum", accum_steps=1,
                 pinned=True, shared=False, device="cpu", skew=0.0, frozen=None, loss_fn=None):
-    """``epochs`` epochs of ``make_scan_epoch`` on this rank's mesh with
+    """``epochs`` epochs on this rank's mesh of ``make_scan_epoch`` with
     ``graph=True`` (the data-parallel graph's stages; eager on the CPU) and
-    ``graph=False`` (the DDP step loop), each from a copy of ``model``
+    of ``ddp_epoch`` (the DDP step loop), each from a copy of ``model``
     whose parameters this rank first moves by rank·``skew`` (both start
     from rank 0's), the parameters whose names start with ``frozen``
     frozen, the loss ``loss_fn`` (None: m-IWAE at ``K``). For each: the
@@ -105,8 +222,9 @@ def scan_epochs(model, data, epochs, batch_size, K=2, reduction="sum", accum_ste
         trainable = None if frozen is None else {
             name: not name.startswith(frozen) for name, _ in m.named_parameters()}
         state = ttr.TrainState.create(m, opt, seed=0, device=device, trainable=trainable)
-        run = ttr.make_scan_epoch(m, opt, loss_fn or tobj.as_loss(tobj.m_iwae, K=K),
-                                  accum_steps, reduction, device=device, mesh=mesh, graph=graph)
+        args = (m, opt, loss_fn or tobj.as_loss(tobj.m_iwae, K=K), accum_steps, reduction,
+                device)
+        run = ttr.make_scan_epoch(*args, mesh=mesh) if graph else ddp_epoch(*args, mesh=mesh)
         losses = []
         with pinned_noise(shared) if pinned else contextlib.nullcontext():
             for epoch in range(epochs):
@@ -124,7 +242,7 @@ def dp_step_sites(model, batch, step_seeds, K=2):
     """On every rank: the draw sites of one step of the data-parallel
     graph's stages, recorded at one step seed and recomputed for each of
     ``step_seeds`` with ``SeedTape.values``, against the (kind, seed) sites
-    of the DDP step loop's step at that seed. Returns, per rank, per step
+    of ``ddp_train_step``'s step at that seed. Returns, per rank, per step
     seed: (the recomputed sites, the eager sites, the tape's paths, the
     eager sites' paths)."""
     import torch.distributed as dist
@@ -152,7 +270,7 @@ def dp_step_sites(model, batch, step_seeds, K=2):
         try:
             m = copy.deepcopy(model)
             state = ttr.TrainState.create(m, opt, device="cpu")
-            step = ttr.make_train_step(m, opt, loss_fn, device="cpu", mesh=mesh)
+            step = ddp_train_step(m, opt, loss_fn, device="cpu", mesh=mesh)
             with rng.recording(rng.SeedTape()) as eager:
                 step(state, batch)
         finally:

@@ -215,9 +215,10 @@ def train_loop(model, train_data, loss_fn, train_cfg, *, config: Any = None,
     Under a data-parallel ``train.mesh`` each rank's step is two graphs,
     the gradients and the update, around the eager gradient all-reduce
     (InfoNCE's step also splits at its gather, whose all-reduces run
-    between graphs); where a collective runs inside a graph's part of the
-    step (a tensor-parallel mesh) the step loop runs from the second step
-    on, and a line says which collective kept it. Augmentation, the save,
+    between graphs), and the step loop runs the same stages eagerly; where
+    a collective runs inside a graph's part of the step (a tensor-parallel
+    mesh) the step loop runs from the second step on, and a line says
+    which collective kept it. Augmentation, the save,
     ``callback`` and the progress record stay outside the graph, and a
     save between epochs reads the live weights.
 

@@ -55,8 +55,8 @@ SEED_NAMESPACE = 1024  # the kernel's seed block per (row, head)
 class Shard:
     """This rank's place on a (data, model) mesh (``rank`` = data_rank·
     n_model + model_rank) and its two groups: ``data_group`` joins the
-    ranks that hold one model shard (DDP's group), ``model_group`` those
-    that hold one event shard (TP's group)."""
+    ranks that hold one model shard (the gradient all-reduce's group),
+    ``model_group`` those that hold one event shard (TP's group)."""
 
     data_rank: int
     n_data: int

@@ -197,7 +197,8 @@ def shard_of(mesh: Mesh) -> Shard:
 
 
 def data_group(mesh: Mesh):
-    """The group of this rank's model shard over the data axis (DDP's)."""
+    """The group of this rank's model shard over the data axis (the
+    gradient all-reduce's)."""
     return shard_of(mesh).data_group
 
 

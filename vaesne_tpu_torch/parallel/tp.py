@@ -14,10 +14,10 @@ names and torch's [out, in] Linear weights:
 
 The layers put Megatron's two autograd operators around each split pair
 (``ops.partition.copy_to_model`` before, ``reduce_from_model`` after), so
-the replicated parameters take the same gradient on every model rank. DDP
-then runs over the data group alone. The AdamW moments of a split
-parameter are split with it; ``gather_state_tp`` reassembles the whole
-state for a checkpoint.
+the replicated parameters take the same gradient on every model rank. The
+gradient all-reduce of the data-parallel step then runs over the data group
+alone. The AdamW moments of a split parameter are split with it;
+``gather_state_tp`` reassembles the whole state for a checkpoint.
 
 Divisibility: every split axis must divide by the model axis, and so must
 every attention's head count (``num_heads % model == 0``): a head split in

@@ -17,7 +17,9 @@ unless the caller passes ``device="cpu"``, and raise when no card is
 present. ``make_scan_epoch`` runs an epoch as the JAX package's one scanned
 program runs it: on the card every step after a warm-up step is a replay of
 one CUDA graph of the step, whose random draws follow each step's seed
-(``utils.rng.SeedTape``).
+(``utils.rng.SeedTape``). Under a data-parallel mesh the step is one list
+of stages around the gradient all-reduce (``_DataParallelStep``), which
+``make_train_step`` runs eagerly and ``make_scan_epoch`` captures.
 """
 
 from __future__ import annotations
@@ -202,18 +204,16 @@ def to_device(batch, device: torch.device):
 
 def accumulate_gradients(neg_loss_fn: Callable[[nn.Module, Any, int], torch.Tensor],
                          model: nn.Module, batch, seed: int, accum_steps: int,
-                         reduction: str = "mean", no_sync=None) -> torch.Tensor:
+                         reduction: str = "mean") -> torch.Tensor:
     """Microbatched value-and-grad: the batch axis is cut into
     ``accum_steps`` equal microbatches, each backward adds into the
     parameters' ``.grad``, so peak activation memory is one microbatch's.
     ``reduction`` must match the objective's batch reduction: ``"mean"``
     averages the microbatch losses and gradients, ``"sum"`` (``m_iwae``)
-    sums them. Microbatch i takes ``fold_in(seed, i)``. ``no_sync`` (DDP's)
-    holds the gradient all-reduce back until the last microbatch. Returns
-    the loss."""
+    sums them. Microbatch i takes ``fold_in(seed, i)``. Returns the loss."""
     if reduction not in ("mean", "sum"):
         raise ValueError(f"reduction must be 'mean' or 'sum', got {reduction!r}")
-    total = _accumulate(neg_loss_fn, model, batch, seed, accum_steps, no_sync)
+    total = _accumulate(neg_loss_fn, model, batch, seed, accum_steps)
     if reduction == "mean":
         inv = 1.0 / accum_steps
         torch._foreach_mul_([p.grad for p in model.parameters() if p.grad is not None], inv)
@@ -231,53 +231,17 @@ def _microbatch(batch, seed: int, i: int, accum_steps: int):
     return _tree_map(lambda a: a[i * size:(i + 1) * size], batch), fold_in(seed, i)
 
 
-def _accumulate(neg_loss_fn, model: nn.Module, batch, seed: int, accum_steps: int,
-                no_sync=None) -> torch.Tensor:
+def _accumulate(neg_loss_fn, model: nn.Module, batch, seed: int,
+                accum_steps: int) -> torch.Tensor:
     """``accumulate_gradients``' microbatch loop: the gradients and the
     losses summed over the microbatches."""
     total = None
     for i in range(accum_steps):
         micro, micro_seed = _microbatch(batch, seed, i, accum_steps)
-        hold = no_sync is not None and i < accum_steps - 1
-        with no_sync() if hold else contextlib.nullcontext():
-            loss = neg_loss_fn(model, micro, micro_seed)
-            loss.backward()
+        loss = neg_loss_fn(model, micro, micro_seed)
+        loss.backward()
         total = loss.detach() if total is None else total + loss.detach()
     return total
-
-
-class _Objective(nn.Module):
-    """The step's loss as a module, so that DDP wraps the whole objective
-    and ``loss_fn`` still gets the model itself."""
-
-    def __init__(self, model: nn.Module, neg_loss):
-        super().__init__()
-        self.model = model
-        self.neg_loss = neg_loss
-
-    def forward(self, batch, seed):
-        return self.neg_loss(self.model, batch, seed)
-
-
-def _allreduce_sum(group, bucket):
-    """DDP comm hook: sum the bucket over the group (the default averages)."""
-    import torch.distributed as dist
-
-    work = dist.all_reduce(bucket.buffer(), group=group, async_op=True)
-    return work.get_future().then(lambda fut: fut.value()[0])
-
-
-def _ddp(model: nn.Module, neg_loss, shard, reduction: str):
-    """DDP over the data group around the objective: the gradients are
-    averaged (a batch-mean objective) or summed (a batch-sum one) over the
-    ranks in the backward. Frozen parameters stay out of its buckets; every
-    trainable parameter must take a gradient in every step."""
-    from torch.nn.parallel import DistributedDataParallel
-
-    ddp = DistributedDataParallel(_Objective(model, neg_loss), process_group=shard.data_group)
-    if reduction == "sum":
-        ddp.register_comm_hook(shard.data_group, _allreduce_sum)
-    return ddp
 
 
 def _global_norm(state: "TrainState", grads, shard) -> Optional[torch.Tensor]:
@@ -298,53 +262,28 @@ def _global_norm(state: "TrainState", grads, shard) -> Optional[torch.Tensor]:
 
 
 def _step_body(model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
-               accum_reduction: str, device: torch.device, precision: str, mesh):
-    """The step's device work, ``body(state, batch, seed) -> loss``: zero the
-    gradients, the (accumulated) backward of ``-loss_fn`` under bf16 autocast
-    where ``precision`` asks for it, the clip and the AdamW update. It makes
-    no host sync and keeps no host state, so without a mesh a CUDA graph can
-    capture it (``make_scan_epoch``)."""
-    shard = None
-    if mesh is not None:
-        from .parallel.mesh import shard_batch, shard_of
-
-        shard = shard_of(mesh)
-    wrapped = []  # the DDP module, built at the first step on every rank
+               accum_reduction: str, device: torch.device, precision: str):
+    """The step's device work on one process, ``body(state, batch, seed) ->
+    loss``: zero the gradients, the (accumulated) backward of ``-loss_fn``
+    under bf16 autocast where ``precision`` asks for it, the clip and the
+    AdamW update. It makes no host sync and keeps no host state, so a CUDA
+    graph can capture it (``make_scan_epoch``)."""
 
     def neg_loss(m, b, seed):
         with autocast(precision, device):
             return -loss_fn(m, b, seed)
 
-    def objective():
-        """(loss of a global (micro)batch, DDP's no_sync): under a mesh the
-        rank runs its slice of each microbatch under DDP."""
-        if shard is None:
-            return neg_loss, None
-        if not wrapped:
-            wrapped.append(_ddp(model, neg_loss, shard, accum_reduction))
-        ddp = wrapped[0]
-        return (lambda m, b, seed: ddp(shard_batch(b, mesh), seed)), ddp.no_sync
-
     def body(state: TrainState, batch, seed: int) -> torch.Tensor:
         state.optimizer.zero_grad(set_to_none=True)
-        fn, no_sync = objective()
-        # the convolutions' backward reads the cuDNN flags, remat's re-runs
-        # in the backward the shard
-        with cudnn_fp32_deterministic(), partition.sharded(shard):
+        with cudnn_fp32_deterministic():  # the convolutions' backward reads the flags
             if accum_steps == 1:
-                loss = fn(model, batch, seed)
+                loss = neg_loss(model, batch, seed)
                 loss.backward()
                 loss = loss.detach()
             else:
-                loss = accumulate_gradients(fn, model, batch, seed, accum_steps,
-                                            accum_reduction, no_sync)
-        if shard is not None:
-            import torch.distributed as dist
-
-            dist.all_reduce(loss, group=shard.data_group)
-            if accum_reduction == "mean":
-                loss = loss / shard.n_data
-        _clip_and_update(state, optimizer, shard)
+                loss = accumulate_gradients(neg_loss, model, batch, seed, accum_steps,
+                                            accum_reduction)
+        _clip_and_update(state, optimizer, None)
         return loss
 
     return body
@@ -369,27 +308,24 @@ class _Stage(NamedTuple):
 
 
 class _DataParallelStep:
-    """``make_train_step``'s step under a mesh, in three stages, so that a
-    CUDA graph can hold each side of the gradient all-reduce (``stages``):
+    """The step under a mesh, in three stages, so that a CUDA graph can hold
+    each side of the gradient all-reduce (``stages``):
 
     (i) the (accumulated) backward of this rank's slice of each
-        (micro)batch through the model itself, not DDP, under the shard;
-        then the trainable gradients and the loss packed into one buffer,
-        the gradients times 1/n for a batch-mean objective;
+        (micro)batch under the shard; then the trainable gradients and the
+        loss packed into one buffer, the gradients times 1/n for a
+        batch-mean objective;
     (ii) one all-reduce of the buffer over the data group (eager);
     (iii) the gradients unpacked (then divided by the microbatch count for
         a batch-mean objective), the loss divided by n for a batch-mean
         objective, the clip and the AdamW update.
 
-    That is DDP's arithmetic: its reducer multiplies each gradient by 1/n
-    into its bucket (the comm hook of a batch-sum objective copies it) and
-    sums the buckets once, after the last microbatch. A sum over two ranks
-    is one addition, so on two ranks the stages give the DDP step bitwise
-    (over more, the backend may order the sum of this buffer otherwise
-    than DDP's buckets'). Frozen parameters
-    stay out, as they stay out of DDP's buckets. ``start`` broadcasts the
-    data group's first rank's parameters and buffers, as DDP's constructor
-    does."""
+    So the gradients are the global batch's, summed for a batch-sum
+    objective and averaged for a batch-mean one, reduced once after the
+    last microbatch; the backend orders the sum of the one buffer. Frozen
+    parameters stay out of the buffer. ``start`` broadcasts the data
+    group's first rank's parameters and buffers, once before the first
+    step."""
 
     def __init__(self, model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
                  accum_reduction: str, device: torch.device, precision: str, mesh):
@@ -439,7 +375,7 @@ class _DataParallelStep:
         grads = [p.grad for p in state.trainable_parameters()]
         if any(g is None for g in grads):
             raise RuntimeError("a trainable parameter took no gradient: under a mesh every "
-                               "trainable parameter must take one in every step (as under DDP)")
+                               "trainable parameter must take one in every step")
         if any(g.dtype != loss.dtype for g in grads):
             raise TypeError(f"the data-parallel step packs the gradients and the loss into one "
                             f"buffer of one dtype; the loss is {loss.dtype}, the gradients "
@@ -471,10 +407,10 @@ class _DataParallelStep:
 class _GatheredStep(_DataParallelStep):
     """``_DataParallelStep`` for an objective that gathers its model's
     outputs over the data group (``objectives.gathered``: InfoNCE over the
-    global batch). Its step loop runs the gather's two all-reduces inside
-    the forward and the backward; here each (micro)batch's step splits at
-    them, and they run eagerly between graphs, as the gradient all-reduce
-    does:
+    global batch). The unsplit objective runs the gather's two all-reduces
+    inside its forward and backward (``partition.gather_events``); here
+    each (micro)batch's step splits at them, and they run as eager stages,
+    as the gradient all-reduce does:
 
     (i) the towers: the gradients zeroed (first microbatch), this rank's
         outputs of its slice under the shard, kept with their autograd
@@ -490,8 +426,8 @@ class _GatheredStep(_DataParallelStep):
         ``_DataParallelStep``'s (i);
 
     then its all-reduce and update. Each collective does what
-    ``partition.gather_events`` does in the step loop, on the same values,
-    so the stages give the step loop bitwise. The stages keep their
+    ``partition.gather_events`` does, on the same values, so the stages
+    give the unsplit objective's step bitwise. The stages keep their
     outputs and buffers, which the next stage (and, on the card, its
     graph) reads."""
 
@@ -565,6 +501,28 @@ class _GatheredStep(_DataParallelStep):
             self._pack(state, loss)
 
 
+def _run(stages: List[_Stage], state: TrainState, batch, seed: int) -> torch.Tensor:
+    """The step's stages in order, eagerly; the last one's loss."""
+    for stage in stages:
+        loss = stage.fn(state, batch, seed)
+    return loss
+
+
+def _step_stages(model: nn.Module, optimizer: AdamW, loss_fn: LossFn, accum_steps: int,
+                 accum_reduction: str, device: torch.device, precision: str, mesh):
+    """The step as ``_Stage``s, and what runs once before the first step
+    (None without a mesh): one captured stage on one process; under a mesh
+    ``_DataParallelStep``'s stages, or ``_GatheredStep``'s for an objective
+    that ``objectives.gathered`` splits where the data axis is > 1."""
+    if mesh is None:
+        return [_Stage(_step_body(model, optimizer, loss_fn, accum_steps, accum_reduction,
+                                  device, precision), True)], None
+    args = (model, optimizer, loss_fn, accum_steps, accum_reduction, device, precision, mesh)
+    gathered = objectives.gathered(loss_fn) if mesh.data > 1 else None
+    split = _DataParallelStep(*args) if gathered is None else _GatheredStep(*args, gathered)
+    return split.stages(), split.start
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
                     accum_steps: int = 1, accum_reduction: str = "mean", device=None,
                     precision: Optional[str] = None, mesh=None):
@@ -578,20 +536,26 @@ def make_train_step(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     loss stays on the device.
 
     ``mesh`` (a ``parallel`` mesh this process is a rank of): the step
-    takes the global batch and runs this rank's slice of it under DDP over
-    the data group; ``accum_reduction`` names the objective's batch
-    reduction, so the gradients and the returned loss are the global
-    batch's (summed for ``"sum"``, averaged for ``"mean"``). The clip's
-    norm is taken after the gradient all-reduce, over the whole gradient
-    of a tensor-parallel model."""
+    takes the global batch and runs, eagerly and in order, the stages that
+    ``make_scan_epoch`` captures (``_DataParallelStep``, or
+    ``_GatheredStep``); the data group's first rank's parameters are
+    broadcast before the first step. ``accum_reduction`` names the objective's batch reduction, so the
+    gradients and the returned loss are the global batch's (summed for
+    ``"sum"``, averaged for ``"mean"``). The clip's norm is taken after the
+    gradient all-reduce, over the whole gradient of a tensor-parallel
+    model."""
     device = resolve_device(device)
-    body = _step_body(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
-                      resolve_precision(precision), mesh)
+    stages, start = _step_stages(model, optimizer, loss_fn, accum_steps, accum_reduction,
+                                 device, resolve_precision(precision), mesh)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, torch.Tensor]:
+        nonlocal start
         if state.model is not model:
             raise ValueError("the state holds another model than this step")
-        loss = body(state, to_device(batch, device), draw_seed(state.generator))
+        if start is not None:
+            start()
+            start = None
+        loss = _run(stages, state, to_device(batch, device), draw_seed(state.generator))
         state.step += 1
         return state, loss
 
@@ -693,7 +657,8 @@ class _GraphEpoch:
     epoch is ``train.epoch`` (``epoch``: the state's step over the epoch's
     steps), holding ``train.order`` (the permutation and its copy to the
     device), a ``train.step`` a step (``kind``: ``warm_up``, ``capture``,
-    ``replay``, ``eager`` on the CPU, or ``loop`` under a mesh's step loop)
+    ``replay``, ``eager`` on the CPU, or ``loop`` where a mesh keeps the
+    step loop: the stages run eagerly)
     and ``train.loss_read`` (the epoch's one sync); a step holds
     ``train.gather`` (the batch into the static buffers), and where graphs
     replay ``train.reseed`` (the sites' seeds, the generators' re-seeds and
@@ -705,16 +670,16 @@ class _GraphEpoch:
     (``partition.collectives_reached``; an eager stage's are the step's
     own): where one runs there (a tensor-parallel layer's all-reduce, the
     gather of an objective that ``objectives.gathered`` does not split), no
-    graph can hold it under gloo, and every later step runs ``loop`` (the
-    step loop's step) instead; ``step_loop_reason`` then names those
-    collectives."""
+    graph can hold it under gloo, and every later step runs the stages
+    eagerly on its gathered batch instead (the step loop);
+    ``step_loop_reason`` then names those collectives."""
 
     def __init__(self, model: nn.Module, stages: List[_Stage], device: torch.device,
-                 mesh=None, start=None, loop=None):
+                 mesh=None, start=None):
         if not stages[-1].captured:
             raise ValueError("the step's last stage returns the loss and must be captured")
         self.model, self.stages, self.device, self.mesh = model, stages, device, mesh
-        self.start, self.loop = start, loop
+        self.start = start
         self.key = None      # what the buffers, the warm-up and the graph were made for
         self.buffers = None  # the step's batch leaves, filled in place
         self.warm = None     # the warm-up step's tape
@@ -745,7 +710,9 @@ class _GraphEpoch:
     def _step(self, state: TrainState, data, leaves, idx: torch.Tensor) -> torch.Tensor:
         if self.step_loop_reason is not None:
             with span("train.step", kind="loop"):
-                state, loss = self.loop(state, _tree_map(lambda a: a[idx], data))
+                loss = _run(self.stages, state, _tree_map(lambda a: a[idx], data),
+                            draw_seed(state.generator))
+                state.step += 1
             return loss
         with span("train.step") as step:
             seed = StepSeed(draw_seed(state.generator))
@@ -764,18 +731,13 @@ class _GraphEpoch:
                 if self.warm is None:
                     loss = self._warm_up(state, batch, seed)
                 elif self.device.type != "cuda":
-                    loss = self._run(state, batch, seed)
+                    loss = _run(self.stages, state, batch, seed)
                 else:
                     self._capture(state, batch, seed)
             if self.graph is not None:
                 loss = self._replay(state, seed)
             state.step += 1
         return loss
-
-    def _run(self, state: TrainState, batch, seed: int) -> torch.Tensor:
-        for stage in self.stages:
-            out = stage.fn(state, batch, seed)
-        return out
 
     def _warm_up(self, state: TrainState, batch, seed: int) -> torch.Tensor:
         """The first step of a geometry, eager (on the card on a side
@@ -804,7 +766,7 @@ class _GraphEpoch:
             main.wait_stream(side)
             loss.record_stream(main)
         if reached:
-            if self.loop is None:
+            if self.mesh is None:
                 raise RuntimeError(f"the step ran {', '.join(sorted(reached))} outside a mesh")
             self.step_loop_reason = ", ".join(sorted(reached))
         self.warm = tape
@@ -887,33 +849,24 @@ def make_scan_epoch(model: nn.Module, optimizer: AdamW, loss_fn: LossFn,
     the same permutation, seeds and update as the step loop, bitwise
     (``_GraphEpoch``); on the CPU the same capture-ready body eagerly.
     Under ``mesh`` every rank draws the same permutation and runs its slice
-    of each step's batch; with ``graph=True`` the step is two graphs, the
-    gradients and the update, around the gradient all-reduce, which runs
-    eagerly between their replays (``_DataParallelStep``, DDP's arithmetic,
-    bitwise the step loop on two ranks). An objective that gathers its
-    model's outputs over the ranks (``objectives.gathered``: InfoNCE's
-    global batch) splits its backward at the gather too, whose all-reduces
-    run eagerly between graphs of the towers, the head and the towers'
-    backward (``_GatheredStep``). A collective inside a captured stage (a
-    tensor-parallel layer's, an unsplit objective's gather) keeps the step
-    loop from the second step on, and the function's ``step_loop_reason``
-    names it. ``graph=False``: ``train_epoch`` over ``make_train_step``
-    (DDP under ``mesh``)."""
-    if graph and mesh is None:
-        device = resolve_device(device)
-        body = _step_body(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
-                          resolve_precision(precision), None)
-        return _GraphEpoch(model, [_Stage(body, True)], device)
-    step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
-                           precision, mesh)
+    of each step's batch, and the step is ``make_train_step``'s stages: two
+    graphs, the gradients and the update, around the gradient all-reduce,
+    which runs eagerly between their replays (``_DataParallelStep``). An
+    objective that gathers its model's outputs over the ranks
+    (``objectives.gathered``: InfoNCE's global batch) splits its backward
+    at the gather too, whose all-reduces run eagerly between graphs of the
+    towers, the head and the towers' backward (``_GatheredStep``). A
+    collective inside a captured stage (a tensor-parallel layer's, an
+    unsplit objective's gather) keeps the step loop from the second step
+    on, and the function's ``step_loop_reason`` names it. ``graph=False``:
+    ``train_epoch`` over ``make_train_step``."""
     if graph:
         device = resolve_device(device)
-        args = (model, optimizer, loss_fn, accum_steps, accum_reduction, device,
-                resolve_precision(precision), mesh)
-        gathered = objectives.gathered(loss_fn) if mesh.data > 1 else None
-        split = (_DataParallelStep(*args) if gathered is None
-                 else _GatheredStep(*args, gathered))
-        return _GraphEpoch(model, split.stages(), device, mesh, split.start, step)
+        stages, start = _step_stages(model, optimizer, loss_fn, accum_steps, accum_reduction,
+                                     device, resolve_precision(precision), mesh)
+        return _GraphEpoch(model, stages, device, mesh, start)
+    step = make_train_step(model, optimizer, loss_fn, accum_steps, accum_reduction, device,
+                           precision, mesh)
 
     def run(state: TrainState, data, generator: torch.Generator,
             batch_size: int) -> Tuple[TrainState, float]:
