@@ -177,6 +177,17 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      byte bound and beside torch's kernels at the same shape; the module's
      time a call against nn.LayerNorm's at [480, 32], where the host sets
      the pace.
+ 21. (run right after phase 9) K2 in fp32 at rate 0.1 on the training
+     cells' grids: ztf-train-k8's R = 512 and flagship-train-b16's R = 64
+     of 982x982 masked (row 0 fully masked), host-image-train-b32's R = 32
+     of 900x900 unmasked, and the kernel table's R = 768: each launch takes
+     the pipelined kernel (K2 pipelined moves with K2), its first 8 rows'
+     dq, dk, dv held against the plain version, its device time (CUDA
+     events over back-to-back launches of the C entry point) beside its
+     bound; with --parent-csrc DIR (another checkout's csrc/, e.g. the
+     parent commit's from git archive), that checkout's K2 built from its
+     sources and timed on the same inputs in turns (parent, this, this,
+     parent).
 
 Wherever a phase counts launches (COUNTERS: K1-K4, and the LayerNorm
 kernels' LN, LN bwd and LN plain, the CUDA LayerNorms that took
@@ -192,6 +203,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import ctypes
 import json
 import os
 import shutil
@@ -199,6 +211,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -929,6 +942,18 @@ def assert_k1_route(phase, label, fn, dtype=torch.float32):
     return result
 
 
+def assert_k2_route(phase, label, before, dtype=torch.float32):
+    """Hold the ``K2 pipelined`` counter's move since ``before`` (a
+    ``counters.launch_counts()``) to ``K2``'s where the run is fp32 (every
+    backward of the training paths is on a 982², 983² or 900² grid at head
+    size 8, the pipelined kernel's) and to 0 in bf16."""
+    after = counters.launch_counts()
+    k2, piped = (after[n] - before[n] for n in ("K2", "K2 pipelined"))
+    want = k2 if dtype == torch.float32 else 0
+    log(phase, f"{label}: K2 {k2}, K2 pipelined {piped} (predicted {want})")
+    assert k2 > 0 and piped == want, (label, k2, piped, want)
+
+
 def assert_ln_engaged(label, launches, backward=None):
     """Every LayerNorm of a counted run (``launches``: COUNTERS to counts)
     took the kernels: LN > 0 and LN plain 0, and, where ``backward`` says
@@ -977,7 +1002,7 @@ def phase_training(seed):
         step = make_train_step(model, opt, m_iwae_loss, precision=precision)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        times, losses = [], []
+        times, losses, routes = [], [], counters.launch_counts()
         for i in range(TRAIN_STEPS):
             before = kernel_counts()
             t0 = time.perf_counter()
@@ -987,6 +1012,8 @@ def phase_training(seed):
             got = tuple(b - a for a, b in zip(before, kernel_counts()))
             assert got == want, (precision, i, got, want)
         assert np.isfinite(losses).all(), (precision, losses)
+        assert_k2_route(7, f"{precision} steps", routes,
+                        torch.float32 if precision == "fp32" else torch.bfloat16)
         med = statistics.median(times[1:])  # the first step warms caches and cuBLAS
         peak = torch.cuda.max_memory_allocated() / 2**20
         log(7, f"{precision}: losses {', '.join(f'{x:.2f}' for x in losses)}; step times "
@@ -1261,6 +1288,92 @@ def _params_rel(a, b):
     return diff / max(x.abs().max().item() for x in a.parameters())
 
 
+# phase 21: K2's grids (rows, Lq = Lk, masked): ztf-train-k8's and
+# flagship-train-b16's spectra decoders, host-image-train-b32's image
+# decoder, the kernel table's B = 192 step
+K2_GRIDS = ((512, NS, True), (64, NS, True), (32, 900, False), (M * K_TRAIN * B_TRAIN, NS, True))
+K2_HELD_ROWS = 8  # rows of each grid held against the plain version
+
+
+def parent_bwd(csrc):
+    """The C entry point vaesne_attention_bwd of another checkout's K2,
+    built from ``csrc`` (its attention_bwd.cu and attention_common.cuh) with
+    the port's nvcc flags into build/k2_parent/."""
+    out = Path(__file__).resolve().parent / "build" / "k2_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "attention_bwd.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(Path(csrc) / "attention_bwd.cu")], check=True, capture_output=True,
+                   text=True, timeout=600)
+    fn = ctypes.CDLL(str(lib)).vaesne_attention_bwd
+    fn.argtypes = list(attention._BWD_ARGS)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def phase_k2_ab(parent_csrc=None):
+    """Phase 21: K2 in fp32 at rate 0.1 on K2_GRIDS: the launch takes the
+    pipelined kernel, the first K2_HELD_ROWS rows' gradients against the
+    plain version (fp32 gate: 1e-4 of max |plain|), the device time of 10
+    back-to-back launches of the C entry point over 10, beside the bound;
+    with ``parent_csrc``, the other checkout's K2 on the same inputs and
+    scratch in turns. Returns {rows: dict(ms, parent_ms, bound_ms, by,
+    max_abs, rel)}."""
+    this = _build.function("attention_bwd", "vaesne_attention_bwd", attention._BWD_ARGS)
+    parent = parent_bwd(parent_csrc) if parent_csrc else None
+    res = {}
+    for rows, n, masked in K2_GRIDS:
+        q, k, v, mask = attention_inputs(rows, n, n, masked, seed=21, full_row=masked)
+        dout = randn_like(q, 44)
+        dseed = 2**31 + 21
+        word = seed_word(dseed)
+        out, m, l = attention.fused_attention_fwd(q, k, v, mask, HEADS, DROPOUT, word)
+        before = counters.launch_counts()
+        grads = attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, HEADS, DROPOUT,
+                                              word)
+        torch.cuda.synchronize()
+        after = counters.launch_counts()
+        assert after["K2"] - before["K2"] == 1 == after["K2 pipelined"] - before["K2 pipelined"]
+        held = slice(0, K2_HELD_ROWS)
+        want = attention.attention_backward_reference(
+            q[held], k[held], v[held], None if mask is None else mask[held], dout[held], HEADS,
+            DROPOUT, dseed)
+        err = max((g[held] - w).abs().max().item() for g, w in zip(grads, want))
+        rel = max(_rel(g[held], w) for g, w in zip(grads, want))
+        assert rel <= 1e-4, (rows, n, rel)
+        del grads, want
+        # the C entry point with every argument ready, so that the host's
+        # time per call stays under the device's
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta, acc = torch.empty_like(m), torch.empty(rows, HEADS, n, 8, device="cuda")
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), attention._ptr(mask), out.data_ptr(),
+                dout.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), rows, n, n, HEADS, 8, 0,
+                *attention._dropout_args(DROPOUT, word, 8), torch.cuda.current_stream().cuda_stream)
+
+        def timed(fn):
+            return lambda: _build.check(fn(*args), "attention_bwd")
+
+        order = (parent, this, this, parent) if parent else (this, this)
+        times = [time_ms(timed(fn), inner=10) for fn in order]
+        ms = statistics.median(t for t, fn in zip(times, order) if fn is this)
+        parent_ms = statistics.median(t for t, fn in zip(times, order) if fn is parent) \
+            if parent else None
+        bound_ms, by = attention_bwd_bound(rows, n, n, torch.float32)
+        grid = f"R={rows} {n}x{n}{' masked' if masked else ''}"
+        log(21, f"K2 {grid} rate {DROPOUT} fp32: " + ", ".join(
+                f"{'parent' if fn is parent else 'this'} {t:.4f}" for t, fn in zip(times, order))
+            + f" ms" + (f" ({parent_ms / ms:.2f}x)" if parent else "")
+            + f"; bound {bound_ms:.4f} ms ({by}), {100 * bound_ms / ms:.1f}% of it; rows "
+              f"0-{K2_HELD_ROWS - 1} against the plain version: max-abs {err:.3e}, "
+              f"rel {rel:.2e}")
+        res[rows] = dict(ms=ms, parent_ms=parent_ms, bound_ms=bound_ms, by=by, max_abs=err,
+                         rel=rel)
+        del q, k, v, mask, dout, out, m, l, dq, dk, dv, delta, acc
+        torch.cuda.empty_cache()
+    return res
+
+
 def phase_drivers(seed):
     """Phase 10: the training drivers as a user runs them, at the flagship
     widths, on the synthetic data of --seed. Returns the launches of (a)'s
@@ -1293,10 +1406,11 @@ def phase_drivers(seed):
 
     reset_counts()
     mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0)
-    captured = counters.captures
+    captured, routes = counters.captures, counters.launch_counts()
     state_a, losses_a = train_photospectra.main(
         driver_args(seed, dir_a, f"train.epochs={DRIVER_EPOCHS}", "train.save_every=1"),
         callback=on_epoch)
+    assert_k2_route(10, "(a) train_photospectra", routes)
     launches_a = dict(zip(COUNTERS, kernel_counts()))
     log(10, f"(a) main path (drivers): launches {launches_a}; CUDA graphs of the step "
             f"captured {counters.captures - captured} (train.scan_epoch=true)")
@@ -1799,9 +1913,13 @@ def phase_image_training(seed):
         reset_counts()
         mark.update(t=time.perf_counter(), counts=kernel_counts(), step=0,
                     conv=counters.conv_launches)
+        routes = counters.launch_counts()
         state, losses = train_image.main(
             [*overrides, *image_driver_args(seed, os.path.join(root, label),
                                             f"train.epochs={epochs}")], callback=on_epoch)
+        # the hybrid decoder's 900² grid (the per-pixel 3,600² takes PR 3's kernel)
+        if label == "image":
+            assert_k2_route(12, "(c) image", routes)
         launches = dict(zip(COUNTERS, kernel_counts()))
         rates = [cfg.train.batch_size * n / t for t, n in epoch_s]
         peak = torch.cuda.max_memory_allocated() / 2**20
@@ -4321,6 +4439,8 @@ def device_ms(call, n=100):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent-csrc", default=None,
+                        help="another checkout's vaesne_tpu_torch/csrc: phase 21 times its K2 too")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card only", file=sys.stderr)
@@ -4342,6 +4462,7 @@ def main(argv=None):
     t = phase_train_times(train, args.seed, sm_clock)
     del train
     torch.cuda.empty_cache()
+    k2ab = phase_k2_ab(args.parent_csrc)
     drivers, drivers_serving, rate, busy = phase_drivers(args.seed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -4400,7 +4521,9 @@ def main(argv=None):
          b16["fwd"], b16["lib_f"], drivers["K1 rate>0"]),
         ("attention_bwd", "cuda", attn_src.format("bwd"), "vaesne_tpu/ops/attention.py:353",
          train_launches["K2"], errs["attention_bwd"], f32["bwd"], t["plain_b"], f32["b_b"],
-         f32["lib_b"], b16["bwd"], b16["lib_b"], drivers["K2"]),
+         f32["lib_b"], b16["bwd"], b16["lib_b"], drivers["K2"],
+         {f"{key}_r{rows}": r[key] for rows, r in k2ab.items()
+          for key in ("ms", "parent_ms", "bound_ms") if r[key] is not None}),
         ("laplace_fwd", "cuda", lap_src, "vaesne_tpu/ops/laplace.py:30",
          train_launches["K3"], errs["laplace_fwd"], lap32["k3"], lap32["p3"], lap32["b3"], None,
          lap16["k3"], None, drivers["K3"]),
@@ -4466,7 +4589,9 @@ def main(argv=None):
     # and 10 (launches_plain, 0). The Laplace
     # rows are at the step's [2, 192] slice and add, per slice [K, B] of LAPLACE_PATH (suffix _{K·B}) and
     # dtype, their device time, bound, torch.sum's time and the wrapper's
-    # host time per call; no single library call computes K3 or K4
+    # host time per call; no single library call computes K3 or K4. The
+    # attention_bwd row adds phase 21's fp32 K2 at rate 0.1 on K2_GRIDS
+    # (ms_r{rows}, bound_ms_r{rows}, and parent_ms_r{rows} with --parent-csrc)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
     laplace_extra = {}
     for name, n in (("laplace_fwd", 3), ("laplace_bwd", 4)):

@@ -38,6 +38,7 @@ from vaesne_tpu_torch.nn import MultiHeadAttention, TransformerStack
 pytestmark = pytest.mark.cuda
 
 PIPE_MAX_KEYS = 1664  # 208 tiles of 8 keys: csrc/attention_fwd.cu PIPE_MAX_TILES
+PIPE_MAX_QUERIES = 1024  # csrc/attention_bwd.cu: the queries K2's pipelined kernel stages
 
 
 @pytest.fixture
@@ -94,6 +95,10 @@ GRIDS += [
 # one chunk of 64, lies among the tile grids above).
 GRIDS += [(64, 4, 8, 982, 982, True), (32, 4, 8, 900, 900, False),
           (2, 4, 8, 20, PIPE_MAX_KEYS, True), (2, 4, 8, 20, PIPE_MAX_KEYS + 1, True)]
+# Either side of the most queries K2's pipelined fp32 kernel stages (its
+# fewest keys, one slab of 64, lie among the tile grids above; 982 and 900
+# queries are its ragged last chunks).
+GRIDS += [(2, 4, 8, PIPE_MAX_QUERIES, 70, True), (2, 4, 8, PIPE_MAX_QUERIES + 1, 70, True)]
 
 
 def _pipelined(dtype, Dh, Lk):
@@ -101,6 +106,15 @@ def _pipelined(dtype, Dh, Lk):
     fp32, head dim 8, from 64 keys up to what its shared memory holds."""
     want = dtype == torch.float32 and Dh == 8 and 64 <= Lk <= PIPE_MAX_KEYS
     assert attention.routes_pipelined(dtype, Dh, Lk) == want
+    return int(want)
+
+
+def _bwd_pipelined(dtype, Dh, Lq, Lk):
+    """The C dispatch's rule for K2's pipelined kernel, as the tests hold
+    it: fp32, head dim 8, up to the queries its shared memory holds, from
+    one slab of 64 keys."""
+    want = dtype == torch.float32 and Dh == 8 and 1 <= Lq <= PIPE_MAX_QUERIES and Lk >= 64
+    assert attention.routes_bwd_pipelined(dtype, Dh, Lq, Lk) == want
     return int(want)
 
 
@@ -157,11 +171,12 @@ def test_backward_matches_autograd_of_plain_version(cuda, R, H, Dh, Lq, Lk, mask
     floor = 1.0 if Lk == 1 else 1e-6
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         qd, kd, vd = (t.detach().to(dtype).requires_grad_() for t in (q, k, v))
-        before = attention.bwd_launches
+        before, piped = attention.bwd_launches, attention.bwd_pipelined_launches
         out = attention.fused_attention(qd, kd, vd, mask, H, rate, seed)
         out.backward(dout.to(dtype))
         torch.cuda.synchronize()
         assert attention.bwd_launches == before + 1
+        assert attention.bwd_pipelined_launches == piped + _bwd_pipelined(dtype, Dh, Lq, Lk)
         for got, ref in zip((qd.grad, kd.grad, vd.grad), want):
             assert got.dtype == dtype
             assert _rel(got, ref, floor) <= tol, (dtype, _rel(got, ref, floor))
@@ -176,17 +191,20 @@ def test_backward_matches_autograd_of_plain_version(cuda, R, H, Dh, Lq, Lk, mask
 def test_kernels_are_deterministic(cuda, dtype):
     """K1 (with its statistics) and K2 twice on the same inputs at rate
     0.1: bitwise-equal outputs, statistics and gradients (no atomics; every
-    sum in a fixed order)."""
+    sum in a fixed order). In fp32 K2 runs its pipelined kernel, whose dq
+    sums meet in shared memory across warpgroups."""
     for L, masked in ((982, True), (900, False)):
         q, k, v, mask = (t if t is None or t.dtype == torch.bool else t.to(dtype)
                          for t in _inputs(cuda, 4, 4, 8, L, L, masked, seed=4))
         dout = _randn_like(q, seed=14)
         runs = []
+        piped = attention.bwd_pipelined_launches
         for _ in range(2):
             out, m, l = attention.fused_attention_fwd(q, k, v, mask, 4, 0.1, 21)
             grads = attention.fused_attention_bwd(q, k, v, mask, out, m, l, dout, 4, 0.1, 21)
             runs.append((out, m, l, *grads))
         torch.cuda.synchronize()
+        assert attention.bwd_pipelined_launches == piped + 2 * (dtype == torch.float32)
         for a, b in zip(*runs):
             assert torch.equal(a, b)
 
@@ -218,7 +236,7 @@ def test_attention_graph_replay_is_the_eager_call(cuda):
     word) and K2 captured in a CUDA graph on 982x982 fp32, the pipelined
     kernel's grid: a replay gives the eager calls' bits, also after new
     values in the static input and the seed word; the capture counts one
-    launch of each, K1 pipelined among them."""
+    launch of each, K1 pipelined and K2 pipelined among them."""
     q, k, v, mask = _inputs(cuda, 4, 4, 8, 982, 982, True, seed=6)
     q2 = _randn_like(q, seed=16)
     dout = _randn_like(q, seed=17)
@@ -236,11 +254,12 @@ def test_attention_graph_replay_is_the_eager_call(cuda):
         call()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = (attention.launches, attention.pipelined_launches, attention.bwd_launches)
+    before = (attention.launches, attention.pipelined_launches, attention.bwd_launches,
+              attention.bwd_pipelined_launches)
     with torch.cuda.graph(graph):
         got = call()
-    assert (attention.launches, attention.pipelined_launches, attention.bwd_launches) == tuple(
-        n + 1 for n in before)
+    assert (attention.launches, attention.pipelined_launches, attention.bwd_launches,
+            attention.bwd_pipelined_launches) == tuple(n + 1 for n in before)
     for values, seed in ((q, 31), (q2, 32)):
         with torch.no_grad():
             qs.copy_(values)

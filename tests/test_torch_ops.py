@@ -280,3 +280,27 @@ def test_pipelined_counter_moves_with_the_others_and_the_plain_path_leaves_it():
     for rate in (0.0, 0.1):
         fused_attention_fwd(q, k, v, mask, 4, rate, 3)
     assert counters.launch_counts() == counts
+
+
+def test_bwd_pipelined_counter_moves_with_the_others_and_the_plain_path_leaves_it():
+    """``K2 pipelined`` is one of the port's counters: read, set and added
+    to (a graph replay's launches) with the others; CPU tensors take the
+    plain backward and count no launch."""
+    counts = counters.launch_counts()
+    assert counts["K2 pipelined"] == port_attention.bwd_pipelined_launches
+    try:
+        counters.set_launch_counts({"K2": 5, "K2 pipelined": 3})
+        assert (port_attention.bwd_launches, port_attention.bwd_pipelined_launches) == (5, 3)
+        counters.add_launch_counts({"K2": 4, "K1": 0, "K2 pipelined": 4})
+        after = counters.launch_counts()
+        assert (after["K2"], after["K2 pipelined"]) == (9, 7)
+        assert after["K1"] == counts["K1"] and after["K1 pipelined"] == counts["K1 pipelined"]
+    finally:
+        counters.set_launch_counts({k: counts[k] for k in ("K2", "K2 pipelined")})
+    assert counters.launch_counts() == counts
+    q, k, v, mask = (torch.from_numpy(a) for a in _inputs(4, 2, 4, 70, 982))
+    dout = torch.ones_like(q)
+    for rate in (0.0, 0.1):
+        out, m, l = fused_attention_fwd(q, k, v, mask, 4, rate, 3)
+        fused_attention_bwd(q, k, v, mask, out, m, l, dout, 4, rate, 3)
+    assert counters.launch_counts() == counts

@@ -1,7 +1,8 @@
 // What the attention forward (K1) and backward (K2) kernels share: the
 // mask bias, the attention-weight dropout mask, the tensor-core tile
 // operations on one head (mma.sync m16n8k8), the cp.async staging of a
-// chunk of rows into shared memory, and the loop over chunks.
+// chunk of rows into shared memory, the loop over chunks, and the wgmma
+// fences and waits of the pipelined fp32 kernels.
 //
 // Dropout mask: a pure function of (seed, row, head, query, key), so the
 // backward regenerates the forward's mask without storing it. It is the
@@ -384,6 +385,39 @@ struct Mma<float> {
     mma1(c, a.hi, b.hi);
   }
 };
+
+// x split into its TF32 head (hi) and tail (lo), four values at once
+__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
+  uint32_t h[4], l[4];
+  Mma<float>::split(x.x, h[0], l[0]);
+  Mma<float>::split(x.y, h[1], l[1]);
+  Mma<float>::split(x.z, h[2], l[2]);
+  Mma<float>::split(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                   __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                   __uint_as_float(l[3]));
+}
+
+// -- wgmma (the pipelined fp32 kernels) ------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accesses of an accumulator across the
+// asynchronous product that writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&s)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+f"(s[i][0]), "+f"(s[i][1]), "+f"(s[i][2]), "+f"(s[i][3])::"memory");
+}
 
 // -- staging and the chunk loop --------------------------------------------------
 

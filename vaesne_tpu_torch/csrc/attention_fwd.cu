@@ -302,19 +302,6 @@ constexpr int PIPE_MIN_KEYS = PIPE_KT * 8, PIPE_MAX_KEYS = PIPE_MAX_TILES * 8;
 
 int pipe_sms = 132;  // the card's SM count, read by vaesne_attention_fwd_init
 
-// x split into its TF32 head (hi) and tail (lo), four values at once
-__device__ __forceinline__ void split4(const float4& x, float4& hi, float4& lo) {
-  uint32_t h[4], l[4];
-  Mma<float>::split(x.x, h[0], l[0]);
-  Mma<float>::split(x.y, h[1], l[1]);
-  Mma<float>::split(x.z, h[2], l[2]);
-  Mma<float>::split(x.w, h[3], l[3]);
-  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
-                   __uint_as_float(h[3]));
-  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
-                   __uint_as_float(l[3]));
-}
-
 __device__ __forceinline__ Mma<float>::B fragment(const float4& x) {
   return {{__float_as_uint(x.x), __float_as_uint(x.y)}, {__float_as_uint(x.z), __float_as_uint(x.w)}};
 }
@@ -325,23 +312,6 @@ __device__ __forceinline__ Mma<float>::B fragment(const float4& x) {
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t smem_addr) {
   return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accesses of an accumulator across the
-// asynchronous product that writes it.
-__device__ __forceinline__ void fence_regs(float (&s)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    asm volatile("" : "+f"(s[i][0]), "+f"(s[i][1]), "+f"(s[i][2]), "+f"(s[i][3])::"memory");
 }
 
 // d (+)= a b: the 64 x 64 scores of a warpgroup's 64 queries (A, TF32, from

@@ -17,11 +17,19 @@ Kernels, in ``csrc/``:
   into TF32 planes, and the next chunk's scores run on ``wgmma`` while the
   current chunk's softmax and PV products run. The rest streams key chunks
   through shared memory by cp.async.
-* K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: one kernel, a block per
-  (row, head) and a warp per 16 keys, which recomputes p = exp2(s − m)/l
-  and the dropout mask once per (query, key, head), sums dk and dv in
-  registers and dq in an fp32 scratch of its own, in a fixed order and
-  without atomics, so two runs give equal bits.
+* K2 ``attention_bwd.cu`` replaces ``_bwd_kernel``: one kernel a call, a
+  block per (row, head) and a warp per 16 keys, which recomputes
+  p = exp2(s − m)/l and the dropout mask once per (query, key, head), sums
+  dk and dv in registers and dq in a fixed order, without atomics, so two
+  runs give equal bits. fp32 at head size 8 with up to 1024 queries and at
+  least 64 keys (``routes_bwd_pipelined``; counted in
+  ``bwd_pipelined_launches``) takes the pipelined kernel: the block stages
+  all its queries once (q and dout split into TF32 planes, D = Σ do·o, m,
+  1/l, the hash row), each warpgroup walks slabs of 64 keys with k and v in
+  registers, sᵀ and dpᵀ run on ``wgmma`` one chunk of 16 queries ahead of
+  the chunk whose p, ds, dv and dk run, and dq sums in shared memory, slab
+  by slab in order. The rest streams query chunks through shared memory and
+  sums dq in an fp32 scratch of its own.
 
 Every product runs on the tensor cores (``mma.sync`` m16n8k8): in bf16 with
 fp32 accumulation, in fp32 as 3xTF32 (each operand split into two TF32
@@ -78,6 +86,7 @@ launches = 0          # K1 launches (any rate) since the last reset
 dropout_launches = 0  # K1 launches at a dropout rate > 0
 pipelined_launches = 0  # K1 launches that took the pipelined fp32 kernel
 bwd_launches = 0      # K2 launches: one per backward
+bwd_pipelined_launches = 0  # K2 launches that took the pipelined fp32 kernel
 
 HEAD_DIMS = (4, 8, 16, 32)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -313,6 +322,16 @@ def routes_pipelined(dtype: torch.dtype, head_dim: int, lk: int) -> bool:
     return bool(fn(_DTYPE_CODES[dtype], head_dim, lk))
 
 
+@functools.lru_cache(maxsize=None)
+def routes_bwd_pipelined(dtype: torch.dtype, head_dim: int, lq: int, lk: int) -> bool:
+    """Whether K2 takes its pipelined fp32 kernel for these inputs: the C
+    dispatch's own rule (fp32, Dh 8, from one query up to the queries that
+    shared memory holds, from one full slab of 64 keys), asked of the
+    library."""
+    fn = _build.function("attention_bwd", "vaesne_attention_bwd_pipelined", (_i, _i, _i, _i))
+    return bool(fn(_DTYPE_CODES[dtype], head_dim, lq, lk))
+
+
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
@@ -372,8 +391,9 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
     """K2: (dq, dk, dv) in q's dtype, from the forward's inputs, its output
     ``out`` and statistics, and the output gradient ``dout``, with the
     forward's dropout width ``bits`` (None: ``dropout_bits()``). Launches
-    one kernel on the current stream, with fp32 scratch for the delta row
-    term Σ_d dout·out and the dq sums."""
+    one kernel on the current stream; PR 3's chunked kernel gets fp32
+    scratch for the delta row term Σ_d dout·out and the dq sums, the
+    pipelined one keeps both in shared memory."""
     _check(q, k, v, key_padding_mask, num_heads, dropout_rate, seed)
     bits = dropout_bits() if bits is None else bits
     if q.device.type == "cpu":
@@ -393,20 +413,24 @@ def fused_attention_bwd(q, k, v, key_padding_mask, out, row_max, row_sum, dout,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if R == 0 or lq == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty_like(row_max)
-    dq_acc = torch.empty(R, num_heads, lq, hd, dtype=torch.float32, device=q.device)
+    piped = routes_bwd_pipelined(q.dtype, hd, lq, lk)
+    delta = dq_acc = None
+    if not piped:
+        delta = torch.empty_like(row_max)
+        dq_acc = torch.empty(R, num_heads, lq, hd, dtype=torch.float32, device=q.device)
     fn = _build.function("attention_bwd", "vaesne_attention_bwd", _BWD_ARGS)
     word = _word(dropout_rate, seed, q.device)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_padding_mask),
                 out.data_ptr(), dout.data_ptr(), row_max.data_ptr(), row_sum.data_ptr(),
-                delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                _ptr(delta), _ptr(dq_acc), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), R, lq, lk, num_heads, hd, _DTYPE_CODES[q.dtype],
                 *_dropout_args(dropout_rate, word, bits),
                 torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "attention_bwd")
-    global bwd_launches
+    global bwd_launches, bwd_pipelined_launches
     bwd_launches += 1
+    bwd_pipelined_launches += piped
     return dq, dk, dv
 
 

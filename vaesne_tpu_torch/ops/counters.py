@@ -3,7 +3,8 @@
 Each kernel wrapper adds one to its counter where it launches its kernel:
 K1 ``attention.launches`` (and ``dropout_launches`` at a rate > 0,
 ``pipelined_launches`` where the launch took the pipelined fp32 kernel), K2
-``attention.bwd_launches``, K3 ``laplace.launches``, K4
+``attention.bwd_launches`` (and ``bwd_pipelined_launches`` where it took
+the pipelined fp32 kernel), K3 ``laplace.launches``, K4
 ``laplace.bwd_launches``, LN ``layer_norm.launches`` and LN bwd
 ``layer_norm.bwd_launches``; LN plain (``layer_norm.plain_calls``) counts
 the CUDA LayerNorms that computed ``F.layer_norm`` instead; conv
@@ -28,7 +29,8 @@ conv_launches = 0
 
 COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_launches"),
             "K1 pipelined": (attention, "pipelined_launches"),
-            "K2": (attention, "bwd_launches"), "K3": (laplace, "launches"),
+            "K2": (attention, "bwd_launches"),
+            "K2 pipelined": (attention, "bwd_pipelined_launches"), "K3": (laplace, "launches"),
             "K4": (laplace, "bwd_launches"), "LN": (layer_norm, "launches"),
             "LN bwd": (layer_norm, "bwd_launches"), "LN plain": (layer_norm, "plain_calls"),
             "captures": (sys.modules[__name__], "captures"),
