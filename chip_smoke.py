@@ -73,8 +73,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      3 epochs, a run resumed from epoch 2 bitwise the same, samples/s
      (StepTimer), peak memory, a profiled step; (c) train_contrastive
      model.selfattn=true for an epoch, the spectra tower's 983x983
-     key-padded context self-attention on K1 and K2, launches as predicted,
-     both held against their plain versions on the captured input and
+     key-padded context self-attention on K1 and K2, launches as predicted
+     (and the ctx attn counter: 16 a step, 8 from each tower), both held against their plain versions on the captured input and
      timed beside their bounds, the plain versions and SDPA; (d)
      train_regression.main for both modalities and the three backbones, the
      frozen backbones bitwise unchanged and outside AdamW; (e)
@@ -129,8 +129,8 @@ sm_90a) and nvcc. Phases, each printing its own lines:
      of 6 steps on 128 synthetic events); (b)
      train_image in fp32 and a bf16 run resumed from its epoch-2
      checkpoint, train_contrastive at its defaults and with
-     model.selfattn=true, a frozen-backbone train_regression, each bitwise
-     its step loop; (c) samples/s, busy share and peak memory of graph and
+     model.selfattn=true (the ctx attn counter 0 and 16 a step), a
+     frozen-backbone train_regression, each bitwise its step loop; (c) samples/s, busy share and peak memory of graph and
      step loop: the B = 16 driver in fp32 and bf16, bench.py's B = 192
      step in fp32 and bf16 with VAESNE_REMAT 1 and 0, train_image,
      train_contrastive.
@@ -2158,6 +2158,13 @@ def contrastive_step_prediction(cfg):
     return (rate, 2 * n, n, 0, 0, 2 * ln, ln, 0)
 
 
+def contrastive_ctx_attn_prediction(cfg):
+    """The ctx attn counter's count per train_contrastive step: every
+    block's context self-attention in both towers, in the forward and again
+    in remat's re-run; none without model.selfattn."""
+    return 2 * 2 * cfg.model.num_layers * int(cfg.model.selfattn)
+
+
 def regression_step_prediction(modality, backbone):
     """Launches per train_regression step at the default configs: a frozen
     backbone's encoder (2·latent_len VAE queries, or latent_len tower
@@ -2354,13 +2361,18 @@ def phase_contrastive_selfattn(seed):
     start, on_epoch = epoch_timer(13, "(c) train_contrastive model.selfattn=true", per_step,
                                   timer)
     reset_counts()
+    ctx0 = counters.launch_counts()["ctx attn"]
     start()
     with capture_attention(B_CONTRA, CONTEXT, CONTEXT, store):
         state, losses = train_contrastive.main(
             driver_args(seed, root, "model.selfattn=true", "train.epochs=1"), callback=on_epoch)
     launches = dict(zip(COUNTERS, kernel_counts()))
+    ctx = counters.launch_counts()["ctx attn"] - ctx0
+    want_ctx = state.step * contrastive_ctx_attn_prediction(cfg)
+    log(13, f"(c) selfattn: ctx attn {ctx} over {state.step} steps (predicted {want_ctx})")
     assert np.isfinite(losses).all()
     assert tuple(launches.values()) == tuple(state.step * w for w in per_step), launches
+    assert ctx == want_ctx, (ctx, want_ctx)
 
     q, k, v, mask = (t.detach() for t in store)
     del store[:]
@@ -3714,6 +3726,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         captured, start = counters.captures, kernel_counts()
+        ctx0 = counters.launch_counts()["ctx attn"]
         mark.update(t=time.perf_counter(), counts=start, step=0)
         with contextlib.ExitStack() as stack:
             if hold and name == "graph":
@@ -3729,6 +3742,7 @@ def loop_pair(seed, label, main, argv, per_step, batch_size, epochs, profile=Fal
         assert captured == (name == "graph"), (name, captured)  # one graph, kept across epochs
         numbers = dict(peak=torch.cuda.max_memory_allocated() / 2**20, losses=losses,
                        steps=state.step, launches=dict(zip(COUNTERS, launches)),
+                       ctx_attn=counters.launch_counts()["ctx attn"] - ctx0,
                        rate=batch_size * times[1][1] / times[1][0] if lead and epochs > 1
                        else None)
         if prof is not None:
@@ -3852,8 +3866,14 @@ def phase_graph(seed):
                                    contrastive_step_prediction(contra), B_CONTRA, GRAPH_EPOCHS,
                                    profile=True)
     selfattn = parse_overrides(contra, ["model.selfattn=true"])
-    loop_pair(seed, "(b) train_contrastive selfattn", train_contrastive.main,
-              ["model.selfattn=true"], contrastive_step_prediction(selfattn), B_CONTRA, 1)
+    pair = loop_pair(seed, "(b) train_contrastive selfattn", train_contrastive.main,
+                     ["model.selfattn=true"], contrastive_step_prediction(selfattn), B_CONTRA, 1)
+    for cfg, runs in ((contra, res["contrastive"]), (selfattn, pair)):
+        per_step = contrastive_ctx_attn_prediction(cfg)
+        got = {name: (r["ctx_attn"], r["steps"]) for name, r in runs.items()}
+        log(17, f"(b) train_contrastive selfattn={cfg.model.selfattn}: ctx attn over the steps "
+                f"{got} (predicted {per_step} a step)")
+        assert all(n == steps * per_step for n, steps in got.values()), got
     loop_pair(seed, "(b) train_regression frozen mmvae", train_regression.main,
               ["modality=photometry", "backbone=mmvae", f"backbone_ckpt={EVAL_CKPT}"],
               regression_step_prediction("photometry", "mmvae"), B_CONTRA, 1)

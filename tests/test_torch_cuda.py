@@ -623,6 +623,39 @@ def test_graph_replays_add_the_captured_convolutions(cuda):
     assert all(step == launches[0] for step in launches), launches
 
 
+def test_graph_replays_add_the_captured_context_attentions(cuda):
+    """make_scan_epoch's CUDA graph of a small two-tower step with the
+    context self-attention (256 spectral bins: the spectra context's
+    257x257 self-attention on K1/K2), over four one-step epochs: the warm-up
+    step, the capture and its replay, then two replays. Every step adds the
+    same launches to the counters: 2 towers x 2 blocks x 2 (the forward and
+    remat's re-run) to ``ctx attn``, none to ``LN plain``."""
+    from vaesne_tpu_torch.data import make_goldstein_like, multimodal_tuple
+    from vaesne_tpu_torch.models import ContraPhotSpec
+    from vaesne_tpu_torch.ops import counters
+    from vaesne_tpu_torch.training import make_scan_epoch
+
+    model = init_params(ContraPhotSpec(latent_len=2, latent_dim=2, proj_dim=3, photo_num_layers=2,
+                                       spec_num_layers=2, selfattn=True),
+                        torch.Generator().manual_seed(0))
+    opt = adamw(1e-3)
+    state = TrainState.create(model, opt, seed=0)
+    epoch = make_scan_epoch(model, opt, objectives.as_loss(objectives.neg_info_nce,
+                                                           temperature=0.1))
+    raw = make_goldstein_like(n=4, seed=1, spectrum_bins=256, photometry_length=12)
+    batch = multimodal_tuple(raw, device=cuda)
+    launches = []
+    for i in range(4):
+        before = counters.launch_counts()
+        state, loss = epoch(state, batch, torch.Generator().manual_seed(i), 4)
+        after = counters.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after if k != "captures"})
+        assert np.isfinite(float(loss))
+    assert launches[0]["ctx attn"] == 8 and launches[0]["LN plain"] == 0
+    assert launches[0]["K1"] == 4 and launches[0]["K2"] == 2
+    assert all(step == launches[0] for step in launches), launches
+
+
 def test_graph_epoch_counts_one_capture_and_its_spans_lie_on_the_device_clock(cuda, tmp_path):
     """Three one-step epochs of make_scan_epoch (the warm-up step, the
     capture and its replay, a replay) add one to ``counters.captures``, at

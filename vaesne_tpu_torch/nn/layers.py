@@ -353,7 +353,8 @@ class TransformerBlock(nn.Module):
     Every tower of the model calls its blocks with a context, so the
     cross-attention parameters always exist. In train mode the seven
     dropout sites (three attentions, four residual branches) draw from
-    ``fold_in(seed, site)``. ``tp_size`` > 1 (``parallel.shard_params_tp``)
+    ``fold_in(seed, site)``. Each run of the context self-attention adds one
+    to ``ops.counters`` ``ctx attn``. ``tp_size`` > 1 (``parallel.shard_params_tp``)
     means ``ffn_0`` holds this rank's hidden columns and ``ffn_2`` the
     matching rows."""
 
@@ -388,6 +389,7 @@ class TransformerBlock(nn.Module):
         x = self.layernorm1(x + dropout(attn, rate, site(1)))
         if context is not None:
             if self.context_self_attn is not None:
+                counters.ctx_attn_calls += 1
                 ctx = self.context_self_attn(context, context, context,
                                              key_padding_mask=context_mask, seed=site(2))
                 context = self.layernorm_context(context + dropout(ctx, rate, site(3)))

@@ -9,7 +9,9 @@ the pipelined fp32 kernel), K3 ``laplace.launches``, K4
 ``layer_norm.bwd_launches``; LN plain (``layer_norm.plain_calls``) counts
 the CUDA LayerNorms that computed ``F.layer_norm`` instead; conv
 (``conv_launches``, added by ``nn.layers.conv2d``) the convolutions of the
-image towers, one a call (cuDNN on the card). A CUDA graph's
+image towers, one a call (cuDNN on the card); ctx attn (``ctx_attn_calls``,
+added by ``nn.layers.TransformerBlock``) the blocks' context
+self-attentions, one a call (remat's re-run is a call). A CUDA graph's
 replay runs no wrapper, so the train step's graph
 (``training.make_scan_epoch``) takes the launches its capture recorded off
 the counters and adds them back at every replay.
@@ -26,6 +28,7 @@ from . import attention, laplace, layer_norm
 
 captures = 0
 conv_launches = 0
+ctx_attn_calls = 0
 
 COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_launches"),
             "K1 pipelined": (attention, "pipelined_launches"),
@@ -34,7 +37,8 @@ COUNTERS = {"K1": (attention, "launches"), "K1 rate>0": (attention, "dropout_lau
             "K4": (laplace, "bwd_launches"), "LN": (layer_norm, "launches"),
             "LN bwd": (layer_norm, "bwd_launches"), "LN plain": (layer_norm, "plain_calls"),
             "captures": (sys.modules[__name__], "captures"),
-            "conv": (sys.modules[__name__], "conv_launches")}
+            "conv": (sys.modules[__name__], "conv_launches"),
+            "ctx attn": (sys.modules[__name__], "ctx_attn_calls")}
 
 
 def launch_counts() -> Dict[str, int]:
